@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Build and drive the PyTorch/CUDA port (uda_poseestimation_torch) on one GPU.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, one JSON line each; any failure raises and the script exits non-zero:
+
+1. env      the card, its power limit (nvidia-smi) and the TF32 settings,
+            which are set off: the f32 comparison below needs full f32.
+2. build    nvcc builds every kernel of the port from csrc/ (the time counts).
+3. kernel   each kernel against its plain PyTorch version on the card at the
+            main path's shapes: seeded random and tie-provoking inputs,
+            equality required; then CUDA-event times of both, with the L2
+            flushed before every launch, and the bound.
+4. parity   one f32 adapt step at small width (tiny PoseResNet, 64² images,
+            b=4) on the card and on the CPU from the same weights, batch and
+            occlusion draws, compared to stated tolerances.
+5. main     the main path at full width through the port's entry points:
+            pose_resnet101 (21 keypoints) and the StyleNet with random
+            weights from a seed, b=32, 256² images, k=1, both style
+            directions and occlusion on, bf16 autocast and bf16 style
+            params: 2 warm-up and 5 timed adapt steps, a pretrain step and
+            an eval step. Every kernel's launch count is reset to 0 just
+            before and read just after; each must have launched.
+
+Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and the
+result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
+of the repository beside it, the script fails before printing any result.
+
+``--profile DIR`` also traces one more adapt step with torch.profiler and
+writes the per-kernel device-time table to DIR/profile_adapt_step.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# the kernel's per-pixel index math: 4 affine stages of 4 fmul + 6 fadd,
+# the centering and rectangle remap (~10 more), as written in the source
+WARP_FLOPS_PER_PIXEL = 50
+
+MAIN_B, MAIN_K, MAIN_KV = 32, 21, 1
+
+# kernel-name patterns of the profile's groups, first match wins
+KERNEL_GROUPS = (
+    ("layout_nchw_nhwc", r"nchwToNhwc|nhwcToNchw"),
+    ("conv_gemm", r"xmma|cutlass|gemm|cudnn|sm90|dgrad|wgrad|implicit|conv"),
+    ("batchnorm", r"batch_norm"),
+    ("reflection_pad", r"reflection_pad"),
+    ("optimizer_ema", r"multi_tensor|foreach"),
+    ("occlusion_warp", r"occlusion_warp"),
+    ("gather_scatter", r"gather|scatter|index"),
+    ("upsample_pool", r"upsample|pool"),
+    ("reduce", r"reduce"),
+    ("elementwise", r"elementwise"),
+)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(fn, iters, flush=None):
+    """Median device time of ``fn`` over ``iters`` launches (CUDA events,
+    after one warm-up call), the L2 cache flushed before each launch."""
+    import torch
+
+    fn()
+    pairs = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def aug_params(rng, b, ties):
+    """bench.py's augmentation recipe, or the tie-provoking set: zero angle
+    and shear, integer translations, scale 0.5 or 2."""
+    import numpy as np
+
+    if ties:
+        return np.stack([np.zeros(b), np.round(rng.uniform(-12, 12, b)),
+                         np.round(rng.uniform(-12, 12, b)), np.zeros(b), np.zeros(b),
+                         rng.choice([0.5, 2.0], b)], -1).astype(np.float32)
+    return np.stack([rng.uniform(-60, 60, b), np.round(rng.uniform(-12, 12, b)),
+                     np.round(rng.uniform(-12, 12, b)), rng.uniform(-30, 30, b),
+                     rng.uniform(-30, 30, b), rng.uniform(0.6, 1.3, b)],
+                    -1).astype(np.float32)
+
+
+def warp_inputs(seed, b, size, ties, device):
+    """Images, (B, 4, 6) coefficients as the adapt step builds them, and
+    (B, 6) rectangles whose centers cycle through the four corners and the
+    interior, so the paste touches every border."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.ops.affine import chain_coeffs, inverse_affine_coeffs
+
+    rng = np.random.RandomState(seed)
+    imgs = torch.from_numpy(rng.rand(b, 3, size, size).astype(np.float32))
+    angle, tx, ty, shx, shy, scale = torch.from_numpy(aug_params(rng, b, ties)).unbind(-1)
+    ratio = 4.0
+    c1, c2, c3 = chain_coeffs(angle, tx / ratio, ty / ratio, shx, shy, scale)
+    cb = inverse_affine_coeffs(-angle, -tx / ratio, -ty / ratio, -shx, -shy, 1.0 / scale)
+    coeffs = torch.stack([cb, c1, c2, c3], dim=1)
+    centers = [(0, 0), (size - 1, size - 1), (0, size - 1), (size - 1, 0)]
+    rect = []
+    for i in range(b):
+        cy, cx = (centers[i] if i < len(centers)
+                  else tuple(int(v) for v in rng.randint(0, size, 2)))
+        left, right = max(cy - 10, 0), min(cy + 10, size)
+        upper, bottom = max(cx - 10, 0), min(cx + 10, size)
+        rect.append([left, right, upper, bottom,
+                     int(rng.rand() * (size - (right - left) + 1)),
+                     int(rng.rand() * (size - (bottom - upper) + 1))])
+    rect = torch.tensor(rect, dtype=torch.int32)
+    return imgs.to(device), coeffs.to(device), rect.to(device)
+
+
+def phase_kernel(device):
+    """occlusion_warp against occlusion_warp_plain; returns its table row."""
+    import torch
+
+    from uda_poseestimation_torch.ops.occlusion_warp import (
+        occlusion_indices_plain, occlusion_warp, occlusion_warp_plain)
+
+    b, size = MAIN_B, 256
+    max_err = 0.0
+    checks = 0
+    for seed, ties in ((0, False), (1, True), (2, False), (3, True)):
+        imgs, coeffs, rect = warp_inputs(seed, b, size, ties, device)
+        for exact in (True, False):
+            for x in (imgs, imgs.contiguous(memory_format=torch.channels_last)):
+                got = occlusion_warp(x, coeffs, rect, exact=exact)
+                want = occlusion_warp_plain(x, coeffs, rect, exact=exact)
+                torch.cuda.synchronize()
+                max_err = max(max_err, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"occlusion_warp != plain (seed {seed}, exact {exact}, "
+                        f"channels_last {not x.is_contiguous()}): max abs err {max_err}")
+                checks += 1
+        # index maps, read through an image whose values are index + 1
+        iota = torch.arange(1, size * size + 1, device=device, dtype=torch.float32)
+        iota = iota.view(1, 1, size, size).expand(b, 1, size, size).contiguous()
+        ix, iy, valid = occlusion_indices_plain(coeffs, rect, size)
+        want_idx = torch.where(valid, iy * size + ix + 1, 0).to(torch.float32)
+        if not torch.equal(occlusion_warp(iota, coeffs, rect)[:, 0], want_idx):
+            raise AssertionError(f"occlusion_warp index map != plain (seed {seed})")
+        checks += 1
+
+    # timing at the main path's call: channels_last f32 input, exact=False
+    imgs, coeffs, rect = warp_inputs(4, b, size, False, device)
+    x = imgs.contiguous(memory_format=torch.channels_last)
+    flush = torch.empty(128 * 2**20 // 4, device=device)  # > the 50 MB L2
+    times = {}
+    for exact in (False, True):
+        times[exact] = (
+            cuda_ms(lambda: occlusion_warp(x, coeffs, rect, exact=exact), 50, flush),
+            cuda_ms(lambda: occlusion_warp_plain(x, coeffs, rect, exact=exact), 10,
+                    flush))
+    # the bytes this run's inputs need: each distinct valid source pixel read
+    # once (C floats), the output written once, the coefficients and rects
+    ix, iy, valid = occlusion_indices_plain(coeffs, rect, size)
+    src = torch.where(valid, iy * size + ix, -1)
+    distinct = sum(int(torch.unique(src[i]).numel()) - int(bool((src[i] < 0).any()))
+                   for i in range(b))
+    c = x.shape[1]
+    n_bytes = distinct * c * 4 + x.numel() * 4 + coeffs.numel() * 4 + rect.numel() * 4
+    n_flops = b * size * size * WARP_FLOPS_PER_PIXEL
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = n_flops / F32_FLOPS * 1e3
+    row = {
+        "name": "occlusion_warp", "route": "cuda",
+        "source": "uda_poseestimation_torch/csrc/occlusion_warp.cu",
+        "replaces": "uda_poseestimation_tpu/ops/pallas_warp.py:145",
+        "launches": None, "max_abs_err": max_err,
+        "ms": times[False][0], "plain_ms": times[False][1],
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": None,
+    }
+    emit({"phase": "kernel", "name": "occlusion_warp", "checks_equal": checks,
+          "max_abs_err": max_err, "shape": list(x.shape),
+          "ms_exact_false": times[False][0], "plain_ms_exact_false": times[False][1],
+          "ms_exact_true": times[True][0], "plain_ms_exact_true": times[True][1],
+          "bytes": n_bytes, "flops": n_flops, "bound_ms": row["bound_ms"],
+          "library": "none: no single PyTorch call computes the staged-rounding chain"})
+    return row
+
+
+def small_models(seed):
+    """Tiny PoseResNet + StyleNet with random weights from ``seed``; the
+    deconv/head kernels and the decoder's last kernel are scaled up from
+    their tiny init so heatmaps and styled images are not flat (the
+    comparison is ill-conditioned otherwise)."""
+    import torch
+
+    from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet, StyleNet
+
+    model = PoseResNet(ResNet(Bottleneck, (1, 1, 1, 1)), MAIN_K)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        for i in (0, 3, 6):
+            model.upsampling[i].weight.mul_(30.0)
+        model.head.weight.mul_(100.0)
+        style.decoder[28].weight.mul_(1000.0)
+    return model, style
+
+
+def synthetic_batch(rng, b, kv, size, hm_size, num_kpts):
+    """bench.py's synthetic batch recipe (bench.py:134-150)."""
+    import numpy as np
+
+    from uda_poseestimation_torch.ops import generate_target_batch
+
+    kp = rng.uniform(20 * size / 256, 230 * size / 256,
+                     size=(b, num_kpts, 2)).astype(np.float32)
+    target, weight = generate_target_batch(kp, np.ones((b, num_kpts), np.float32),
+                                           (hm_size, hm_size), 2.0, (size, size))
+    aug = aug_params(rng, b, ties=False)
+    return {
+        "image_s": rng.rand(b, size, size, 3).astype(np.float32),
+        "target_s": target.numpy(), "weight_s": weight.numpy(),
+        "image_t_stu": rng.rand(b, size, size, 3).astype(np.float32),
+        "images_t_tea": rng.rand(kv, b, size, size, 3).astype(np.float32),
+        "aug_param_stu": aug, "aug_params_tea": np.stack([aug] * kv),
+    }
+
+
+def _rel_max(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _rel_norm(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+
+
+def phase_parity(device):
+    """One f32 adapt step at small width on the card (through the kernel)
+    and on the CPU (through the plain version), same everything.
+
+    Tolerances: forwards 1e-3 of the largest magnitude (cuDNN and the CPU
+    sum f32 convolutions in other orders; BatchNorm over 16 values a channel
+    amplifies that); gradients 5e-2 in norm per tensor: a tiny model's
+    train-mode gradients are not smooth at f32 resolution (ReLU and
+    max-pool kinks): a 1e-6 relative change of the input moves them ~1% in
+    norm even in float64 (tests/grad_precision_probe.py), so two f32
+    implementations agree only that far; integer
+    decisions (kth-value mask, occlusion gate and rectangles) equal; the
+    occluded view may differ in 0.1% of its pixels (the warp coefficients'
+    cos/tan may differ by an ulp between the card and the CPU).
+    """
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step
+
+    cfg = StepConfig(image_size=64, heatmap_size=16, k=1, use_sgd=True,
+                     occlude_rate=0.5, occlude_thresh=-1.0, occlude_size=6,
+                     aux_outputs=True)
+    model, style = small_models(0)
+    rng = np.random.RandomState(1)
+    batch = synthetic_batch(rng, 4, 1, 64, 16, MAIN_K)
+    draws = {"u": np.array([0.2, 0.7, 0.4, 0.9], np.float32),
+             "gumbel": -np.log(-np.log(rng.rand(4, MAIN_K))).astype(np.float32),
+             "u1": rng.rand(4).astype(np.float32), "u2": rng.rand(4).astype(np.float32)}
+    out = []
+    for dev in (device, torch.device("cpu")):
+        state = create_state(copy.deepcopy(model), cfg, seed=None, device=dev)
+        step = make_adapt_step(cfg, style_model=copy.deepcopy(style).to(dev), device=dev)
+        _, metrics, _ = step(state, batch, 0.01, do_s2t=True, alpha_s2t=0.7,
+                             do_t2s=True, alpha_t2s=0.3,
+                             occlusion_draws={k: torch.from_numpy(v).to(dev)
+                                              for k, v in draws.items()})
+        out.append(metrics)
+    gpu, cpu = out
+    errs = {}
+    for name in ("x_s_styled", "x_t_teas_styled", "y_t_tea_recon", "y_t_tea_rect",
+                 "activates", "mask_thresh", "y_t_stu_recon"):
+        errs[name] = _rel_max(gpu["aux"][name], cpu["aux"][name])
+    for name in ("loss_all", "loss_s", "loss_c"):
+        errs[name] = _rel_max(gpu[name], cpu[name])
+    grad_err = max(_rel_norm(gpu["aux"]["grads"][n], g)
+                   for n, g in cpu["aux"]["grads"].items())
+    equal = {name: torch.equal(gpu["aux"][name].cpu(), cpu["aux"][name])
+             for name in ("tea_mask", "occlude", "occlusion_rect")}
+    moved = float((gpu["aux"]["x_t_stu_final"].cpu() != cpu["aux"]["x_t_stu_final"])
+                  .float().mean())
+    emit({"phase": "parity", "rel_max_err": errs, "grad_rel_norm_err": grad_err,
+          "occluded_pixels_moved": moved,
+          "occluded_samples": int(cpu["aux"]["occlude"].sum()),
+          "integer_outputs_equal": equal})
+    bad = {k: v for k, v in errs.items() if not v <= 1e-3}
+    if bad or not all(equal.values()) or not grad_err <= 5e-2 or not moved <= 1e-3:
+        raise AssertionError(f"card vs CPU beyond tolerance: {bad}, {equal}, "
+                             f"grads {grad_err}, occluded pixels moved {moved}")
+
+
+def phase_main(device, profile_dir):
+    """The main path at full width; returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.ops.occlusion_warp import occlusion_warp
+    from uda_poseestimation_torch.parallel import (
+        StepConfig, create_state, make_adapt_step, make_eval_step, make_pretrain_step)
+
+    t0 = time.perf_counter()
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    model = pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16)
+    state = create_state(model, cfg, seed=0, device=device)
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)  # frozen: bf16 storage
+    host = synthetic_batch(np.random.RandomState(0), MAIN_B, MAIN_KV, 256, 64, MAIN_K)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    pre_batch = {k: batch[k] for k in ("image_s", "target_s", "weight_s")}
+    pre_batch["image_t_style"] = batch["image_t_stu"]
+    adapt = make_adapt_step(cfg, style_model=style, device=device)
+    pretrain = make_pretrain_step(cfg, style_model=style, device=device)
+    evaluate = make_eval_step(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def adapt_step():
+        return adapt(state, batch, 1e-4, do_s2t=True, alpha_s2t=0.5, do_t2s=True,
+                     alpha_t2s=0.5, generator=gen)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    occlusion_warp.launches = 0
+    losses = []
+    for _ in range(2):  # warm-up
+        _, metrics, _ = adapt_step()
+        losses.append(metrics)
+    torch.cuda.synchronize()
+    n_timed = 5
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        _, metrics, _ = adapt_step()
+        losses.append(metrics)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    adapt_steps = 2 + n_timed
+    if profile_dir:
+        profile_adapt_step(adapt_step, profile_dir, step_s * 1e3)
+        adapt_steps += 1
+    _, pre_metrics, _ = pretrain(state, pre_batch, 1e-4, do_s2t=True, alpha=0.5)
+    y, eval_loss, acc = evaluate(state.student, batch["image_s"], batch["target_s"],
+                                 batch["weight_s"])
+    torch.cuda.synchronize()
+    launches = {"occlusion_warp": occlusion_warp.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    values = [float(m[k]) for m in losses for k in ("loss_all", "loss_s", "loss_c")]
+    values += [float(pre_metrics["loss_all"]), float(eval_loss)]
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"non-finite loss on the main path: {values}")
+    if tuple(y.shape) != (MAIN_B, MAIN_K, 64, 64) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"eval heatmaps: shape {tuple(y.shape)}, finite "
+                             f"{bool(torch.isfinite(y).all())}")
+    if launches["occlusion_warp"] != adapt_steps:
+        raise AssertionError(f"occlusion_warp launched {launches['occlusion_warp']} "
+                             f"times in {adapt_steps} adapt steps")
+    emit({"phase": "main", "model": "pose_resnet101", "num_keypoints": MAIN_K,
+          "batch": MAIN_B, "image": 256, "heatmap": 64, "k": MAIN_KV,
+          "style": "s2t+t2s", "occlusion": True, "dtype": "bf16 autocast, bf16 style",
+          "setup_s": setup_s, "adapt_steps": adapt_steps, "ms_per_step": step_s * 1e3,
+          "img_per_s": MAIN_B / step_s, "max_memory_allocated": peak,
+          "loss_all_last": float(losses[-1]["loss_all"]),
+          "pretrain_loss": float(pre_metrics["loss_all"]),
+          "eval_loss": float(eval_loss), "launches": launches,
+          "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line()})
+    return launches
+
+
+def profile_adapt_step(adapt_step, out_dir, step_ms):
+    """Device time by kernel and kernel group over one adapt step
+    (torch.profiler); the idle share is taken against ``step_ms``, the
+    unprofiled step time, since the profiler slows the host."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adapt_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: operator rows and annotated ranges (the optimizer's
+        # step) repeat their kernels' device time
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        rows.append({"name": ev.key[:100], "calls": ev.count,
+                     "device_ms": ev.device_time_total / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy_ms = sum(r["device_ms"] for r in rows)
+    groups = {}
+    for r in rows:
+        name = next((g for g, pat in KERNEL_GROUPS if re.search(pat, r["name"], re.I)),
+                    "other")
+        g = groups.setdefault(name, {"device_ms": 0.0, "calls": 0})
+        g["device_ms"] += r["device_ms"]
+        g["calls"] += r["calls"]
+    summary = {"profiled_wall_ms": wall_ms, "step_ms": step_ms, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / step_ms,
+               "kernel_launches": sum(r["calls"] for r in rows),
+               "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["device_ms"]))}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_adapt_step.json"), "w") as f:
+        json.dump(dict(summary, kernels=rows), f, indent=1)
+    emit(dict({"phase": "profile"}, **summary, top=rows[:8]))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="also trace one adapt step into DIR")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        from uda_poseestimation_torch import _build
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
+        return 2
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    emit({"phase": "env", "device": torch.cuda.get_device_name(device),
+          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0],
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    t0 = time.perf_counter()
+    path = _build.build("occlusion_warp")
+    _build.load("occlusion_warp")
+    emit({"phase": "build", "kernels": ["occlusion_warp"],
+          "seconds": time.perf_counter() - t0, "library": os.path.relpath(path, REPO)})
+
+    row = phase_kernel(device)
+    phase_parity(device)
+    launches = phase_main(device, args.profile)
+    row["launches"] = launches["occlusion_warp"]
+
+    emit({"kernels": [row]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

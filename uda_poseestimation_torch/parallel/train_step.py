@@ -1,0 +1,411 @@
+"""The fused pretrain, adapt and eval steps.
+
+PyTorch twin of ``uda_poseestimation_tpu/parallel/train_step.py``:
+
+- ``pretrain``: optional s2t AdaIN stylization, student forward, JointsMSE,
+  optimizer step (train_human.py:244-302);
+- ``adapt``: the mean-teacher step (train_human.py:305-458): a shared VGG
+  encode of [x_s; k teacher views], the drawn style directions, k teacher
+  forwards in train mode, inverse-affine heatmap reconstruction, adaptive
+  keypoint occlusion (the ``occlusion_warp`` kernel on the card), rectify
+  and the global kth-value mask, two student forwards, the loss, the
+  optimizer step and the EMA teacher;
+- ``eval``: forward, loss and per-keypoint PCK.
+
+The batch keeps the JAX layout: ``image_*`` NHWC (B, H, W, 3),
+``images_t_tea`` (k, B, H, W, 3), heatmaps (B, K, h, w), ``aug_param*``
+(..., 6). Models run NCHW. The state's modules and optimizer are updated
+in place; the steps return the same state object with ``step`` advanced.
+
+Randomness: the style gates and alphas are host values, one draw per
+iteration as in the reference. The per-sample occlusion draws come from a
+``torch.Generator``, or are passed in as ``occlusion_draws`` so that a test
+can feed the draws ``jax.random`` makes in the JAX step.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from ..models.ema import ema_update
+from ..models.loss import cons_loss, joints_mse_loss
+from ..models.style_net import StyleNet
+from ..ops.adain import adain
+from ..ops.affine import chain_coeffs, inverse_affine_coeffs, inverse_warp_heatmaps
+from ..ops.heatmap import get_max_preds, rectify
+from ..ops.occlusion_warp import occlusion_warp
+from ..ops.pck import keypoint_pck_accuracy
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """Step configuration; the fields and defaults of the JAX StepConfig."""
+
+    image_size: int = 256
+    heatmap_size: int = 64
+    sigma: float = 2.0
+    k: int = 1
+    lambda_c: float = 1.0
+    teacher_alpha: float = 0.999
+    mask_ratio: float = 0.5
+    occlude_rate: float = 0.5
+    occlude_thresh: float = 0.9
+    occlude_size: int = 10
+    # styled-image clamp = normalized [0,1] bounds (train_human.py:32-33)
+    recover_min: Tuple[float, float, float] = (-2.1179, -2.0357, -1.8044)
+    recover_max: Tuple[float, float, float] = (2.2489, 2.4285, 2.64)
+    use_sgd: bool = False
+    # 0.1x learning rate on backbone params (lib/models/pose_resnet.py:86-91)
+    finetune: bool = False
+    # True reproduces the reference's 3 chained nearest resamples exactly;
+    # the port has only this path so far (False raises)
+    exact_warp_chain: bool = True
+    # the JAX package's choice of occlusion gather; the port has one path,
+    # ``occlusion_warp`` (the CUDA kernel on the card, its plain version on
+    # the CPU), and keeps the field so a JAX StepConfig's fields carry over
+    gather_impl: str = "auto"
+    # no counterpart in the port (a CUDA kernel has no interpret mode);
+    # kept for the same reason, and must stay False
+    pallas_interpret: bool = False
+    # the adapt step also returns its intermediates under metrics["aux"]
+    aux_outputs: bool = False
+    # False -> the occlusion warp returns bf16-rounded values, equivalent
+    # when the models cast their inputs to bf16 anyway
+    gather_exact: bool = True
+    # dtype of the styled images between the style switch and the pose models
+    style_io_dtype: str = "float32"
+
+    def __post_init__(self):
+        if not self.exact_warp_chain:
+            raise NotImplementedError(
+                "the port implements exact_warp_chain=True only")
+        if self.pallas_interpret:
+            raise ValueError("pallas_interpret has no meaning in the port")
+        if self.gather_impl not in ("auto", "pallas", "xla"):
+            raise ValueError(f"gather_impl {self.gather_impl!r}")
+        if self.style_io_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"style_io_dtype {self.style_io_dtype!r}")
+
+    @property
+    def ratio(self) -> float:
+        return self.image_size / self.heatmap_size
+
+
+@dataclasses.dataclass
+class UDAState:
+    """Training state: the student and its EMA teacher (each with its own
+    BatchNorm buffers) and the student's optimizer."""
+
+    step: int
+    student: nn.Module
+    teacher: nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+def make_tx(model: nn.Module, cfg: StepConfig) -> torch.optim.Optimizer:
+    """torch Adam(eps=1e-8) or SGD(momentum 0.9, wd 1e-4, nesterov)
+    (train_human.py:136-139). With ``cfg.finetune`` the backbone is its own
+    group at 0.1x the learning rate. Each group carries ``lr_scale``; the
+    steps set ``lr = lr_scale * lr`` before every update."""
+    backbone, rest = [], []
+    for name, p in model.named_parameters():
+        (backbone if cfg.finetune and name.startswith("backbone.") else rest).append(p)
+    groups = [{"params": rest, "lr_scale": 1.0}]
+    if backbone:
+        groups.append({"params": backbone, "lr_scale": 0.1})
+    if cfg.use_sgd:
+        return torch.optim.SGD(groups, lr=0.0, momentum=0.9, weight_decay=1e-4,
+                               nesterov=True)
+    return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+
+
+def create_state(model: nn.Module, cfg: StepConfig, seed: Optional[int] = 0,
+                 device: DeviceLike = None) -> UDAState:
+    """Student = ``model`` on ``device``, re-initialized from ``seed`` (None
+    keeps its current weights, e.g. loaded ones); teacher = a real copy of
+    the student (OldWeightEMA init)."""
+    dev = resolve_device(device)
+    if seed is not None:
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    teacher = copy.deepcopy(model).requires_grad_(False)
+    return UDAState(step=0, student=model, teacher=teacher,
+                    optimizer=make_tx(model, cfg))
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _to_device(batch: Mapping, dev: torch.device) -> dict:
+    return {k: v.to(dev) if isinstance(v, torch.Tensor)
+            else torch.tensor(v, device=dev)
+            for k, v in batch.items() if v is not None}
+
+
+def _clamp_styled(x, cfg: StepConfig):
+    """Clamp NCHW styled images to the per-channel normalized bounds."""
+    lo = torch.tensor(cfg.recover_min, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+    hi = torch.tensor(cfg.recover_max, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+    return torch.maximum(torch.minimum(x, hi), lo)
+
+
+def _set_lr(optimizer: torch.optim.Optimizer, lr: float):
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr) * group["lr_scale"]
+
+
+# ---------------------------------------------------------------------------
+# Adaptive keypoint occlusion (train_human.py:376-413)
+# ---------------------------------------------------------------------------
+
+def draw_occlusion(batch_size: int, num_keypoints: int, device,
+                   generator: Optional[torch.Generator] = None) -> dict:
+    """The per-sample occlusion draws: gate uniform ``u`` (B,), Gumbel noise
+    (B, K) for the keypoint choice, and two source-offset uniforms."""
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(uniform(batch_size, num_keypoints).clamp_(min=tiny)))
+    return {"u": uniform(batch_size), "gumbel": gumbel,
+            "u1": uniform(batch_size), "u2": uniform(batch_size)}
+
+
+def _occlusion_geometry(y_t_tea_recon, cfg: StepConfig, draws: Mapping):
+    """Per-sample occlusion decisions: gate, rectangle, source offsets."""
+    s = cfg.image_size
+    dev = y_t_tea_recon.device
+    u, gumbel, u1, u2 = (torch.as_tensor(draws[n], dtype=torch.float32, device=dev)
+                         for n in ("u", "gumbel", "u1", "u2"))
+    conf = y_t_tea_recon.amax(dim=(2, 3))  # (B, K)
+    preds, _ = get_max_preds(y_t_tea_recon)  # (B, K, 2) (x, y)
+    conf_table = conf >= cfg.occlude_thresh
+    do = (conf_table.sum(dim=1) > 0) & (u <= cfg.occlude_rate)
+    # uniform choice among confident keypoints (Gumbel-max over the mask)
+    choice = torch.where(conf_table, gumbel, float("-inf")).argmax(dim=1)
+    pos = preds[torch.arange(preds.shape[0], device=dev), choice]
+    pos = (pos * cfg.ratio).to(torch.int32)  # (B, 2) (x, y) at image scale
+    # rows from y -> [left, right), cols from x -> [upper, bottom)
+    left = (pos[:, 1] - cfg.occlude_size).clamp(min=0)
+    right = (pos[:, 1] + cfg.occlude_size).clamp(max=s)
+    upper = (pos[:, 0] - cfg.occlude_size).clamp(min=0)
+    bottom = (pos[:, 0] + cfg.occlude_size).clamp(max=s)
+    left_src = torch.floor(u1 * (s - (right - left) + 1).to(torch.float32)).to(torch.int32)
+    upper_src = torch.floor(u2 * (s - (bottom - upper) + 1).to(torch.float32)).to(torch.int32)
+    return do, left, right, upper, bottom, left_src, upper_src
+
+
+def _occlude_batch(x_t_stu_nhwc, y_t_tea_recon, aug_param_stu, cfg: StepConfig,
+                   draws: Mapping):
+    """Paste random patches over confident predicted keypoints, in the
+    single-gather form backward(paste(forward(x))) (exact chain).
+
+    Returns the occluded NHWC images, the per-sample gate (B,) and the
+    rectangles (B, 6) [left, right, upper, bottom, left_src, upper_src].
+    """
+    do, left, right, upper, bottom, left_src, upper_src = _occlusion_geometry(
+        y_t_tea_recon, cfg, draws)
+    angle, tx, ty, shx, shy, scale = aug_param_stu.to(torch.float32).unbind(-1)
+    c1, c2, c3 = chain_coeffs(angle, tx / cfg.ratio, ty / cfg.ratio, shx, shy, scale)
+    cb = inverse_affine_coeffs(-angle, -tx / cfg.ratio, -ty / cfg.ratio,
+                               -shx, -shy, 1.0 / scale)
+    coeffs = torch.stack([cb, c1, c2, c3], dim=1)  # (B, 4, 6)
+    rect = torch.stack([left, right, upper, bottom, left_src, upper_src],
+                       dim=-1).to(torch.int32)
+    imgs = _nchw(x_t_stu_nhwc)  # a channels_last view, no copy
+    occluded = occlusion_warp(imgs, coeffs, rect, exact=cfg.gather_exact)
+    out = torch.where(do[:, None, None, None], occluded, imgs)
+    return _nhwc(out), do, rect
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def _style_views(style_model: StyleNet, x_s, x_t_teas, do_s2t: bool, alpha_s2t,
+                 do_t2s: bool, alpha_t2s, cfg: StepConfig):
+    """The drawn style directions, both against the ORIGINAL tensors
+    (train_human.py:348-356), with one shared VGG encode of [x_s; k views]
+    and one batched decode of every drawn target. NHWC in and out."""
+    sdtype = torch.bfloat16 if cfg.style_io_dtype == "bfloat16" else torch.float32
+    if not (do_s2t or do_t2s):
+        return x_s.to(sdtype), x_t_teas.to(sdtype)
+    b = x_s.shape[0]
+    stacked = torch.cat([x_s[None], x_t_teas]).flatten(0, 1)
+    f_all = style_model.encode(_nchw(stacked)).float()
+    f_s, f_ts = f_all[:b], f_all[b:].unflatten(0, (cfg.k, b))
+    targets = []
+    if do_s2t:
+        a = torch.as_tensor(alpha_s2t, dtype=torch.float32, device=f_s.device)
+        targets.append(a * adain(f_s, f_ts[0]) + (1.0 - a) * f_s)
+    if do_t2s:
+        a = torch.as_tensor(alpha_t2s, dtype=torch.float32, device=f_s.device)
+        targets += [a * adain(f_ts[i], f_s) + (1.0 - a) * f_ts[i]
+                    for i in range(cfg.k)]
+    g = _nhwc(_clamp_styled(style_model.decode(torch.cat(targets)).to(sdtype), cfg))
+    if do_s2t:
+        x_s, g = g[:b], g[b:]
+    else:
+        x_s = x_s.to(sdtype)
+    x_t_teas = g.reshape(x_t_teas.shape) if do_t2s else x_t_teas.to(sdtype)
+    return x_s, x_t_teas
+
+
+def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
+                    device: DeviceLike = None):
+    """Mean-teacher adaptation step (train_human.py:305-458).
+
+    Returns ``step(state, batch, lr, do_s2t=False, alpha_s2t=1.0,
+    do_t2s=False, alpha_t2s=1.0, generator=None, occlusion_draws=None)`` ->
+    ``(state, metrics, y_s)``. The gates are host booleans. ``generator``
+    draws the occlusion randomness on the step's device unless
+    ``occlusion_draws`` ({"u", "gumbel", "u1", "u2"}) is given.
+    """
+    dev = resolve_device(device)
+
+    def step(state: UDAState, batch: Mapping, lr: float, do_s2t: bool = False,
+             alpha_s2t: float = 1.0, do_t2s: bool = False, alpha_t2s: float = 1.0,
+             generator: Optional[torch.Generator] = None,
+             occlusion_draws: Optional[Mapping] = None):
+        batch = _to_device(batch, dev)
+        x_s = batch["image_s"]
+        x_t_stu = batch["image_t_stu"]
+        x_t_teas = batch["images_t_tea"]
+        aug_stu = batch["aug_param_stu"]
+        aug_teas = batch["aug_params_tea"]
+        label_s = batch["target_s"]
+        weight_s = batch["weight_s"]
+        student, teacher = state.student, state.teacher
+        student.train()
+        teacher.train()
+
+        # --- no-grad region: style transfer, teacher, occlusion -----------
+        with torch.no_grad():
+            if style_model is not None:
+                x_s, x_t_teas = _style_views(style_model, x_s, x_t_teas,
+                                             bool(do_s2t), alpha_s2t,
+                                             bool(do_t2s), alpha_t2s, cfg)
+            # k teacher forwards in train mode; running stats chain through
+            recons = [inverse_warp_heatmaps(teacher(_nchw(x_t_teas[i])),
+                                            aug_teas[i], cfg.ratio)
+                      for i in range(cfg.k)]
+            y_t_tea_recon = torch.stack(recons).mean(dim=0)
+            occlusion = None
+            if cfg.occlude_rate > -1:
+                b, k = y_t_tea_recon.shape[:2]
+                draws = (occlusion_draws if occlusion_draws is not None
+                         else draw_occlusion(b, k, dev, generator))
+                x_t_stu, do, rect = _occlude_batch(x_t_stu, y_t_tea_recon,
+                                                   aug_stu, cfg, draws)
+                occlusion = (do, rect)
+            # confidence mask: global kth-value over the (B*K) activations
+            # (train_human.py:427-430); kthvalue is 1-indexed like torch's
+            activates = y_t_tea_recon.amax(dim=(2, 3))  # (B, K)
+            y_t_tea_rect = rectify(y_t_tea_recon, cfg.sigma)
+            kth = max(int(cfg.mask_ratio * activates.numel()), 1)
+            mask_thresh = torch.kthvalue(activates.reshape(-1), kth).values
+            tea_mask = activates > mask_thresh
+
+        # --- grad region: student forwards + losses ------------------------
+        y_s = student(_nchw(x_s))
+        y_t_stu = student(_nchw(x_t_stu))
+        y_t_stu_recon = inverse_warp_heatmaps(y_t_stu, aug_stu, cfg.ratio)
+        loss_s = joints_mse_loss(y_s, label_s, weight_s[..., 0])
+        loss_c = cons_loss(y_t_stu_recon, y_t_tea_rect, tea_mask=tea_mask)
+        loss_all = loss_s + cfg.lambda_c * loss_c
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_all.backward()
+        grads = ({n: p.grad.detach().clone() for n, p in student.named_parameters()}
+                 if cfg.aux_outputs else None)
+        _set_lr(state.optimizer, lr)
+        state.optimizer.step()
+        ema_update(teacher, student, cfg.teacher_alpha)
+
+        y_s = y_s.detach()
+        _, acc_avg, acc_cnt, _ = keypoint_pck_accuracy(y_s, label_s)
+        metrics = {"loss_all": loss_all.detach(), "loss_s": loss_s.detach(),
+                   "loss_c": loss_c.detach(), "acc_s": acc_avg, "acc_cnt": acc_cnt}
+        if cfg.aux_outputs:
+            metrics["aux"] = {
+                "x_s_styled": x_s, "x_t_teas_styled": x_t_teas,
+                "x_t_stu_final": x_t_stu,
+                "y_t_tea_recon": y_t_tea_recon, "y_t_tea_rect": y_t_tea_rect,
+                "activates": activates, "mask_thresh": mask_thresh,
+                "tea_mask": tea_mask, "y_t_stu_recon": y_t_stu_recon.detach(),
+                "grads": grads,
+            }
+            if occlusion is not None:
+                metrics["aux"]["occlude"], metrics["aux"]["occlusion_rect"] = occlusion
+        state.step += 1
+        return state, metrics, y_s
+
+    return step
+
+
+def make_pretrain_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
+                       device: DeviceLike = None):
+    """Source-only supervised step (train_human.py:244-302).
+
+    Returns ``step(state, batch, lr, do_s2t=False, alpha=1.0)`` ->
+    ``(state, metrics, y_s)``; with ``do_s2t`` the source images are
+    stylized against ``batch["image_t_style"]`` and clamped.
+    """
+    dev = resolve_device(device)
+
+    def step(state: UDAState, batch: Mapping, lr: float, do_s2t: bool = False,
+             alpha: float = 1.0):
+        batch = _to_device(batch, dev)
+        x_s = _nchw(batch["image_s"])
+        if style_model is not None and do_s2t:
+            with torch.no_grad():
+                x_s = _clamp_styled(style_model.stylize(
+                    x_s, _nchw(batch["image_t_style"]), alpha), cfg)
+        label_s = batch["target_s"]
+        student = state.student
+        student.train()
+        y_s = student(x_s)
+        loss = joints_mse_loss(y_s, label_s, batch["weight_s"][..., 0])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _set_lr(state.optimizer, lr)
+        state.optimizer.step()
+        y_s = y_s.detach()
+        _, acc_avg, acc_cnt, _ = keypoint_pck_accuracy(y_s, label_s)
+        loss = loss.detach()
+        metrics = {"loss_all": loss, "loss_s": loss, "acc_s": acc_avg,
+                   "acc_cnt": acc_cnt}
+        state.step += 1
+        return state, metrics, y_s
+
+    return step
+
+
+def make_eval_step(device: DeviceLike = None):
+    """Inference forward + loss + per-keypoint PCK (train_human.py:461-500).
+
+    Returns ``eval_fn(model, x, label, weight)`` -> ``(y, loss,
+    acc_per_kpt)`` with ``x`` NHWC; the model runs in eval mode.
+    """
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_fn(model: nn.Module, x, label, weight):
+        x, label, weight = (torch.as_tensor(t, device=dev) for t in (x, label, weight))
+        model.eval()
+        y = model(_nchw(x))
+        loss = joints_mse_loss(y, label, weight[..., 0])
+        acc_per_kpt, _, _, _ = keypoint_pck_accuracy(y, label)
+        return y, loss, acc_per_kpt
+
+    return eval_fn
