@@ -6,35 +6,52 @@
 Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. env      the card, its power limit (nvidia-smi) and the TF32 settings,
-            which are set off: the f32 comparison below needs full f32.
-2. build    nvcc builds every kernel of the port from csrc/ (the time counts).
+            which are set off: the f32 comparisons below need full f32.
+2. build    nvcc builds every kernel of the port from csrc/, one process per
+            source, all started together (the time counts).
 3. kernel   each kernel against its plain PyTorch version on the card at the
-            main path's shapes: seeded random and tie-provoking inputs,
-            equality required; then CUDA-event times of both, with the L2
-            flushed before every launch, and the bound.
+            main paths' shapes, then CUDA-event times of the kernel, the
+            plain version and (where one exists) one PyTorch library call,
+            with the L2 flushed before every launch, and the bound:
+            occlusion_warp (equality required), matmul_stats at the 15
+            distinct (M, K, N) of pose_resnet101's fused 1x1 convs at b=32
+            in bf16, plus f32 and ragged shapes (y within one bf16 ulp or
+            the f32 summation bound, statistics within 1e-5 of the sums of
+            their own y), and warp_gather (equality required).
 4. parity   one f32 adapt step at small width (tiny PoseResNet, 64² images,
             b=4) on the card and on the CPU from the same weights, batch and
-            occlusion draws, compared to stated tolerances.
+            occlusion draws, compared to stated tolerances; then the same
+            with fuse_bn=True (matmul_stats's f32 kernel on the card, its
+            plain version on the CPU).
 5. main     the main path at full width through the port's entry points:
             pose_resnet101 (21 keypoints) and the StyleNet with random
             weights from a seed, b=32, 256² images, k=1, both style
             directions and occlusion on, bf16 autocast and bf16 style
             params: 2 warm-up and 5 timed adapt steps, a pretrain step and
             an eval step. Every kernel's launch count is reset to 0 just
-            before and read just after; each must have launched.
+            before and read just after; each kernel of the path must have
+            launched (occlusion_warp once per adapt step).
+6. main_bn_fuse  the same with pose_resnet101(fuse_bn=True), the
+            UDA_BN_FUSE=1 training path: matmul_stats must launch 70 times
+            per train-mode forward (210 per adapt step at k=1, 70 for the
+            pretrain step, 0 for eval) and occlusion_warp once per adapt
+            step; ms/step, img/s and peak memory beside phase main's.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
 of the repository beside it, the script fails before printing any result.
 
-``--profile DIR`` also traces one more adapt step with torch.profiler and
-writes the per-kernel device-time table to DIR/profile_adapt_step.json.
+``--profile DIR`` also traces one more adapt step of each main path with
+torch.profiler and writes the per-kernel device-time tables to
+DIR/profile_adapt_step.json and DIR/profile_adapt_step_bn_fuse.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
+import gc
 import json
 import os
 import statistics
@@ -44,17 +61,22 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
+# and dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # the kernel's per-pixel index math: 4 affine stages of 4 fmul + 6 fadd,
 # the centering and rectangle remap (~10 more), as written in the source
 WARP_FLOPS_PER_PIXEL = 50
 
 MAIN_B, MAIN_K, MAIN_KV = 32, 21, 1
+# ~1 ms at the H100's ~2 GHz SM clock (see cuda_ms)
+SLEEP_CYCLES = 2_000_000
 
 # kernel-name patterns of the profile's groups, first match wins
 KERNEL_GROUPS = (
+    ("matmul_stats", r"mm_stats|stats_reduce"),
     ("layout_nchw_nhwc", r"nchwToNhwc|nhwcToNchw"),
     ("conv_gemm", r"xmma|cutlass|gemm|cudnn|sm90|dgrad|wgrad|implicit|conv"),
     ("batchnorm", r"batch_norm"),
@@ -80,7 +102,10 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, iters, flush=None):
     """Median device time of ``fn`` over ``iters`` launches (CUDA events,
-    after one warm-up call), the L2 cache flushed before each launch."""
+    after one warm-up call), the L2 cache flushed before each launch. The
+    card is held busy (~1 ms) before the start event, so the host has
+    enqueued ``fn``'s kernels before the events start timing: the host's
+    launch overhead does not count as device time."""
     import torch
 
     fn()
@@ -88,6 +113,7 @@ def cuda_ms(fn, iters, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -143,7 +169,7 @@ def warp_inputs(seed, b, size, ties, device):
     return imgs.to(device), coeffs.to(device), rect.to(device)
 
 
-def phase_kernel(device):
+def phase_kernel_occlusion_warp(device):
     """occlusion_warp against occlusion_warp_plain; returns its table row."""
     import torch
 
@@ -215,7 +241,210 @@ def phase_kernel(device):
     return row
 
 
-def small_models(seed):
+def fused_gemm_shapes(backbone, b, size):
+    """(M, K, N) -> calls per train-mode forward of a fused ResNet backbone
+    at batch ``b`` and ``size``² images: each Bottleneck's conv1 at its input
+    resolution, conv3 and the projection shortcut at its output resolution
+    (the stem and the max-pool divide the size by 4)."""
+    from uda_poseestimation_torch.models import Bottleneck
+
+    counts = collections.Counter()
+    hw = size // 4
+    for block in backbone.modules():
+        if not isinstance(block, Bottleneck):
+            continue
+        out_hw = hw // block.conv2.stride[0]
+        counts[(b * hw * hw, block.conv1.in_channels, block.conv1.out_channels)] += 1
+        counts[(b * out_hw * out_hw, block.conv3.in_channels, block.conv3.out_channels)] += 1
+        if block.downsample is not None:
+            conv = block.downsample[0]
+            counts[(b * out_hw * out_hw, conv.in_channels, conv.out_channels)] += 1
+        hw = out_hw
+    return counts
+
+
+def _gemm_bound(m, k, n, elt, peak):
+    """(bound ms, bytes, flops) of one matmul_stats call: x, w and y once,
+    s1 and s2 (f32); 2MKN operations at ``peak``."""
+    n_bytes = (m * k + n * k + m * n) * elt + 8 * n
+    n_flops = 2 * m * k * n
+    return max(n_bytes / HBM_BYTES_PER_S, n_flops / peak) * 1e3, n_bytes, n_flops
+
+
+def _check_matmul_stats(x, w, tag):
+    """matmul_stats against matmul_stats_plain on the card. y: within one
+    bf16 ulp (bf16 only) plus twice the f32 summation bound
+    K * 2^-24 * sum|x||w| (the two GEMMs sum in other orders; where a sum
+    cancels to near zero, its f32 error exceeds a bf16 ulp of the result);
+    s1/s2: within 1e-5 of the magnitude sums of the f64 sums of the
+    kernel's own y (the kernel adds at most ~120 f32 values in a chain).
+    Returns [max abs error of y, outputs beyond one bf16 ulp, the largest
+    error / bound]."""
+    import torch
+
+    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats, matmul_stats_plain
+
+    y, s1, s2 = matmul_stats(x, w)
+    yp, _, _ = matmul_stats_plain(x, w, x.dtype)
+    torch.cuda.synchronize()
+    k = x.shape[1]
+    y, yp = y.float(), yp.float()
+    err = (y - yp).abs()
+    bound = 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs().t())
+    beyond_ulp = 0
+    if x.dtype == torch.bfloat16:
+        # a bf16 ulp of v is 2^-7 of the power of two at or below |v|
+        big = torch.maximum(y.abs(), yp.abs())
+        ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30)))) * 2.0 ** -7
+        beyond_ulp = int((err > ulp).sum())
+        bound += ulp
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"matmul_stats y != plain {tag}: max abs err "
+                             f"{float(err.max())}, worst err/bound "
+                             f"{float((err / bound).max())}")
+    y64 = y.double()
+    for name, got, want, mag in (("s1", s1, y64.sum(0), y64.abs().sum(0)),
+                                 ("s2", s2, (y64 * y64).sum(0), (y64 * y64).sum(0))):
+        if not bool(((got.double() - want).abs() <= 1e-5 * mag).all()):
+            raise AssertionError(f"matmul_stats {name} != sum of its y {tag}: "
+                                 f"max abs err {float((got.double() - want).abs().max())}")
+    return [float(err.max()), beyond_ulp, float((err / bound).max())]
+
+
+def phase_kernel_matmul_stats(device, shapes):
+    """matmul_stats against matmul_stats_plain at the fused path's shapes
+    (bf16) and at f32 and ragged ones, then per-shape times; returns its
+    table row, whose times are per launch: the mean over the calls of one
+    train-mode forward, each shape weighted by its calls. The phase line
+    also gives their sums over the forward."""
+    import torch
+
+    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats, matmul_stats_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def operands(m, k, n, dtype):
+        x = torch.randn(m, k, device=device, generator=gen).to(dtype)
+        w = (torch.randn(n, k, device=device, generator=gen) / k ** 0.5).to(dtype)
+        return x, w
+
+    max_err = 0.0
+    checks = []
+    extra = [((200, 70, 130), torch.float32), ((1000, 24, 200), torch.float32),
+             ((8192, 1024, 256), torch.float32), ((2048, 512, 2048), torch.float32),
+             ((200, 70, 130), torch.bfloat16), ((77, 64, 33), torch.bfloat16)]
+    for shape, dtype in [(s, torch.bfloat16) for s in sorted(shapes)] + extra:
+        x, w = operands(*shape, dtype)
+        check = _check_matmul_stats(x, w, f"at {shape} {dtype}")
+        checks.append([*shape, str(dtype).split(".")[1], *check])
+        max_err = max(max_err, check[0])
+
+    flush = torch.empty(128 * 2**20 // 4, device=device)  # > the 50 MB L2
+    per_shape = []
+    total = collections.Counter()
+    for shape in sorted(shapes):
+        x, w = operands(*shape, torch.bfloat16)
+        ms = cuda_ms(lambda: matmul_stats(x, w), 20, flush)
+        plain_ms = cuda_ms(lambda: matmul_stats_plain(x, w, torch.bfloat16), 5, flush)
+        lib_ms = cuda_ms(lambda: torch.matmul(x, w.t()), 20, flush)
+        bound_ms, n_bytes, n_flops = _gemm_bound(*shape, 2, BF16_FLOPS)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        calls = shapes[shape]
+        per_shape.append({"mkn": list(shape), "calls": calls, "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bound_ms,
+                          "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
+                          "tflops": n_flops / ms * 1e-9})
+        total["ms"] += calls * ms
+        total["plain_ms"] += calls * plain_ms
+        total["library_ms"] += calls * lib_ms
+        total["bound_ms"] += calls * bound_ms
+        total["bytes_bound_ms"] += calls * bound_ms * (bytes_ms >= bound_ms)
+    calls = sum(shapes.values())
+    row = {
+        "name": "matmul_stats", "route": "cuda",
+        "source": "uda_poseestimation_torch/csrc/matmul_stats.cu",
+        "replaces": "uda_poseestimation_tpu/ops/bn_fuse.py:84",
+        "launches": None, "max_abs_err": max_err,
+        "ms": total["ms"] / calls, "plain_ms": total["plain_ms"] / calls,
+        "bound_ms": total["bound_ms"] / calls,
+        "bound_by": ("bytes" if total["bytes_bound_ms"] >= total["bound_ms"] / 2
+                     else "operations"),
+        "library_ms": total["library_ms"] / calls,
+    }
+    emit({"phase": "kernel", "name": "matmul_stats",
+          "checks": "m, k, n, dtype, max abs err of y, outputs beyond one bf16 ulp, "
+                    "largest err / bound",
+          "check_results": checks,
+          "max_abs_err": max_err, "calls_per_forward": calls,
+          "ms_per_forward": total["ms"], "plain_ms_per_forward": total["plain_ms"],
+          "library_ms_per_forward": total["library_ms"],
+          "bound_ms_per_forward": total["bound_ms"],
+          "bytes_bound_ms_per_forward": total["bytes_bound_ms"],
+          "ms_per_launch": row["ms"], "bound_ms_per_launch": row["bound_ms"],
+          "library": "torch.matmul of the same bf16 operands (cuBLAS), y only",
+          "per_shape": per_shape})
+    return row
+
+
+def phase_kernel_warp_gather(device):
+    """warp_gather against warp_gather_plain at the heatmap warp's shape;
+    returns its table row."""
+    import torch
+
+    from uda_poseestimation_torch.ops.warp_gather import warp_gather, warp_gather_plain
+
+    b, k, h, w = MAIN_B, MAIN_K, 64, 64
+    gen = torch.Generator(device=device).manual_seed(0)
+    hms = torch.randn(b, k, h, w, device=device, generator=gen)
+    # mostly in the map, some just outside each side, ~10% masked off
+    ix = torch.randint(-2, w + 2, (b, h * w), device=device, generator=gen,
+                       dtype=torch.int32)
+    iy = torch.randint(-2, h + 2, (b, h * w), device=device, generator=gen,
+                       dtype=torch.int32)
+    valid = torch.rand(b, h * w, device=device, generator=gen) > 0.1
+    for exact in (True, False):
+        got = warp_gather(hms, ix, iy, valid, exact=exact)
+        want = warp_gather_plain(hms, ix, iy, valid, exact=exact)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"warp_gather != plain (exact {exact}): max abs err "
+                                 f"{float((got - want).abs().max())}")
+
+    flush = torch.empty(128 * 2**20 // 4, device=device)
+    times = {exact: (cuda_ms(lambda: warp_gather(hms, ix, iy, valid, exact=exact), 50,
+                             flush),
+                     cuda_ms(lambda: warp_gather_plain(hms, ix, iy, valid, exact=exact), 10,
+                             flush))
+             for exact in (True, False)}
+    inside = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    src = torch.where(inside, iy * w + ix, 0).long()
+    index = src[:, None].expand(b, k, h * w)
+    lib_ms = cuda_ms(lambda: hms.view(b, k, h * w).gather(2, index), 50, flush)
+    # the bytes this run's inputs need: each distinct in-map source pixel of a
+    # valid output read once (K floats), the indices and mask, the output
+    distinct = sum(int(torch.unique(src[i][inside[i]]).numel()) for i in range(b))
+    n_bytes = distinct * k * 4 + b * h * w * (4 + 4 + 1) + hms.numel() * 4
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": "warp_gather", "route": "cuda",
+        "source": "uda_poseestimation_torch/csrc/warp_gather.cu",
+        "replaces": "uda_poseestimation_tpu/ops/pallas_warp.py:228",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": times[True][0], "plain_ms": times[True][1], "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": lib_ms,
+    }
+    emit({"phase": "kernel", "name": "warp_gather", "checks_equal": 2, "max_abs_err": 0.0,
+          "shape": [b, k, h, w], "ms_exact_true": times[True][0],
+          "plain_ms_exact_true": times[True][1], "ms_exact_false": times[False][0],
+          "plain_ms_exact_false": times[False][1], "bytes": n_bytes, "bound_ms": bound_ms,
+          "library_ms": lib_ms,
+          "library": "torch.gather on the flattened maps with precomputed in-map "
+                     "indices, no mask"})
+    return row
+
+
+def small_models(seed, fuse_bn=False):
     """Tiny PoseResNet + StyleNet with random weights from ``seed``; the
     deconv/head kernels and the decoder's last kernel are scaled up from
     their tiny init so heatmaps and styled images are not flat (the
@@ -224,7 +453,7 @@ def small_models(seed):
 
     from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet, StyleNet
 
-    model = PoseResNet(ResNet(Bottleneck, (1, 1, 1, 1)), MAIN_K)
+    model = PoseResNet(ResNet(Bottleneck, (1, 1, 1, 1), fuse_bn=fuse_bn), MAIN_K)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     style = StyleNet()
     style.reset_parameters(torch.Generator().manual_seed(seed + 1))
@@ -266,9 +495,11 @@ def _rel_norm(got, want):
     return float((got - want).norm()) / max(float(want.norm()), 1e-30)
 
 
-def phase_parity(device):
-    """One f32 adapt step at small width on the card (through the kernel)
-    and on the CPU (through the plain version), same everything.
+def phase_parity(device, fuse_bn=False):
+    """One f32 adapt step at small width on the card (through the kernels)
+    and on the CPU (through the plain versions), same everything; with
+    ``fuse_bn`` the models take the fused 1x1-conv + statistics path
+    (matmul_stats's f32 FFMA kernel on the card).
 
     Tolerances: forwards 1e-3 of the largest magnitude (cuDNN and the CPU
     sum f32 convolutions in other orders; BatchNorm over 16 values a channel
@@ -279,23 +510,28 @@ def phase_parity(device):
     implementations agree only that far; integer
     decisions (kth-value mask, occlusion gate and rectangles) equal; the
     occluded view may differ in 0.1% of its pixels (the warp coefficients'
-    cos/tan may differ by an ulp between the card and the CPU).
+    cos/tan may differ by an ulp between the card and the CPU). The fused
+    path keeps these tolerances: its f32 kernel sums in another order than
+    the CPU's GEMM, as cuDNN does, and the one-pass variance of the
+    fusion adds no loss of precision at these activation magnitudes.
     """
     import numpy as np
     import torch
 
+    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats
     from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step
 
     cfg = StepConfig(image_size=64, heatmap_size=16, k=1, use_sgd=True,
                      occlude_rate=0.5, occlude_thresh=-1.0, occlude_size=6,
                      aux_outputs=True)
-    model, style = small_models(0)
+    model, style = small_models(0, fuse_bn)
     rng = np.random.RandomState(1)
     batch = synthetic_batch(rng, 4, 1, 64, 16, MAIN_K)
     draws = {"u": np.array([0.2, 0.7, 0.4, 0.9], np.float32),
              "gumbel": -np.log(-np.log(rng.rand(4, MAIN_K))).astype(np.float32),
              "u1": rng.rand(4).astype(np.float32), "u2": rng.rand(4).astype(np.float32)}
     out = []
+    matmul_stats.launches = 0
     for dev in (device, torch.device("cpu")):
         state = create_state(copy.deepcopy(model), cfg, seed=None, device=dev)
         step = make_adapt_step(cfg, style_model=copy.deepcopy(style).to(dev), device=dev)
@@ -305,6 +541,7 @@ def phase_parity(device):
                                               for k, v in draws.items()})
         out.append(metrics)
     gpu, cpu = out
+    launched = matmul_stats.launches
     errs = {}
     for name in ("x_s_styled", "x_t_teas_styled", "y_t_tea_recon", "y_t_tea_rect",
                  "activates", "mask_thresh", "y_t_stu_recon"):
@@ -317,7 +554,8 @@ def phase_parity(device):
              for name in ("tea_mask", "occlude", "occlusion_rect")}
     moved = float((gpu["aux"]["x_t_stu_final"].cpu() != cpu["aux"]["x_t_stu_final"])
                   .float().mean())
-    emit({"phase": "parity", "rel_max_err": errs, "grad_rel_norm_err": grad_err,
+    emit({"phase": "parity", "fuse_bn": fuse_bn, "matmul_stats_launches": launched,
+          "rel_max_err": errs, "grad_rel_norm_err": grad_err,
           "occluded_pixels_moved": moved,
           "occluded_samples": int(cpu["aux"]["occlude"].sum()),
           "integer_outputs_equal": equal})
@@ -325,21 +563,38 @@ def phase_parity(device):
     if bad or not all(equal.values()) or not grad_err <= 5e-2 or not moved <= 1e-3:
         raise AssertionError(f"card vs CPU beyond tolerance: {bad}, {equal}, "
                              f"grads {grad_err}, occluded pixels moved {moved}")
+    # three train-mode forwards (teacher, two student) on the card
+    want = 3 * sum(fused_gemm_shapes(model.backbone, 4, 64).values()) * fuse_bn
+    if launched != want:
+        raise AssertionError(f"matmul_stats launched {launched} times in the parity "
+                             f"step, not {want}")
 
 
-def phase_main(device, profile_dir):
-    """The main path at full width; returns the kernels' launch counts."""
+def _counters():
+    """Every kernel wrapper of the port, by name (each has ``launches``)."""
+    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats
+    from uda_poseestimation_torch.ops.occlusion_warp import occlusion_warp
+    from uda_poseestimation_torch.ops.warp_gather import warp_gather
+
+    return {"occlusion_warp": occlusion_warp, "matmul_stats": matmul_stats,
+            "warp_gather": warp_gather}
+
+
+def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
+    """A main path at full width: the default one, or with ``fuse_bn`` the
+    UDA_BN_FUSE=1 training path, whose A/B against ``unfused`` (the default
+    path's result) is printed beside it. Returns its result, launches
+    included."""
     import numpy as np
     import torch
 
     from uda_poseestimation_torch.models import StyleNet, pose_resnet101
-    from uda_poseestimation_torch.ops.occlusion_warp import occlusion_warp
     from uda_poseestimation_torch.parallel import (
         StepConfig, create_state, make_adapt_step, make_eval_step, make_pretrain_step)
 
     t0 = time.perf_counter()
     cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
-    model = pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16)
+    model = pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16, fuse_bn=fuse_bn)
     state = create_state(model, cfg, seed=0, device=device)
     style = StyleNet()
     style.reset_parameters(torch.Generator().manual_seed(1))
@@ -360,28 +615,42 @@ def phase_main(device, profile_dir):
                      alpha_t2s=0.5, generator=gen)
 
     torch.cuda.reset_peak_memory_stats(device)
-    occlusion_warp.launches = 0
-    losses = []
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    def counted(fn, *args, **kwargs):
+        """``fn``'s result and the launches each kernel made in it."""
+        before = {name: c.launches for name, c in counters.items()}
+        out = fn(*args, **kwargs)
+        return out, {name: c.launches - before[name] for name, c in counters.items()}
+
+    losses, step_launches = [], []
     for _ in range(2):  # warm-up
-        _, metrics, _ = adapt_step()
+        (_, metrics, _), launched = counted(adapt_step)
         losses.append(metrics)
+        step_launches.append(launched)
     torch.cuda.synchronize()
     n_timed = 5
     t0 = time.perf_counter()
     for _ in range(n_timed):
-        _, metrics, _ = adapt_step()
+        (_, metrics, _), launched = counted(adapt_step)
         losses.append(metrics)
+        step_launches.append(launched)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / n_timed
-    adapt_steps = 2 + n_timed
     if profile_dir:
-        profile_adapt_step(adapt_step, profile_dir, step_s * 1e3)
-        adapt_steps += 1
-    _, pre_metrics, _ = pretrain(state, pre_batch, 1e-4, do_s2t=True, alpha=0.5)
-    y, eval_loss, acc = evaluate(state.student, batch["image_s"], batch["target_s"],
-                                 batch["weight_s"])
+        _, launched = counted(
+            profile_adapt_step, adapt_step, profile_dir, step_s * 1e3,
+            "profile_adapt_step_bn_fuse" if fuse_bn else "profile_adapt_step")
+        step_launches.append(launched)
+    adapt_steps = len(step_launches)
+    (_, pre_metrics, _), pre_launches = counted(pretrain, state, pre_batch, 1e-4,
+                                                do_s2t=True, alpha=0.5)
+    (y, eval_loss, acc), eval_launches = counted(
+        evaluate, state.student, batch["image_s"], batch["target_s"], batch["weight_s"])
     torch.cuda.synchronize()
-    launches = {"occlusion_warp": occlusion_warp.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(device)
 
     values = [float(m[k]) for m in losses for k in ("loss_all", "loss_s", "loss_c")]
@@ -391,25 +660,45 @@ def phase_main(device, profile_dir):
     if tuple(y.shape) != (MAIN_B, MAIN_K, 64, 64) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"eval heatmaps: shape {tuple(y.shape)}, finite "
                              f"{bool(torch.isfinite(y).all())}")
-    if launches["occlusion_warp"] != adapt_steps:
-        raise AssertionError(f"occlusion_warp launched {launches['occlusion_warp']} "
-                             f"times in {adapt_steps} adapt steps")
-    emit({"phase": "main", "model": "pose_resnet101", "num_keypoints": MAIN_K,
-          "batch": MAIN_B, "image": 256, "heatmap": 64, "k": MAIN_KV,
-          "style": "s2t+t2s", "occlusion": True, "dtype": "bf16 autocast, bf16 style",
-          "setup_s": setup_s, "adapt_steps": adapt_steps, "ms_per_step": step_s * 1e3,
-          "img_per_s": MAIN_B / step_s, "max_memory_allocated": peak,
-          "loss_all_last": float(losses[-1]["loss_all"]),
-          "pretrain_loss": float(pre_metrics["loss_all"]),
-          "eval_loss": float(eval_loss), "launches": launches,
-          "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line()})
-    return launches
+    # launches the path must make: occlusion_warp once per adapt step; the
+    # fused GEMM in each train-mode forward (k teacher + 2 student per adapt
+    # step, 1 per pretrain step, none in eval); each step is counted alone
+    per_forward = sum(fused_gemm_shapes(model.backbone, MAIN_B, 256).values()) * fuse_bn
+    want_step = {"occlusion_warp": 1, "matmul_stats": per_forward * (MAIN_KV + 2),
+                 "warp_gather": 0}
+    want_pre = {"occlusion_warp": 0, "matmul_stats": per_forward, "warp_gather": 0}
+    want_eval = dict.fromkeys(counters, 0)
+    want = {name: adapt_steps * want_step[name] + want_pre[name] for name in counters}
+    if (any(launched != want_step for launched in step_launches)
+            or pre_launches != want_pre or eval_launches != want_eval or launches != want):
+        raise AssertionError(
+            f"launches per adapt step {step_launches}, pretrain step {pre_launches}, "
+            f"eval step {eval_launches}, in all {launches}; the path needs "
+            f"{want_step}, {want_pre}, {want_eval}, in all {want}")
+    result = {"phase": "main_bn_fuse" if fuse_bn else "main", "model": "pose_resnet101",
+              "fuse_bn": fuse_bn, "num_keypoints": MAIN_K,
+              "batch": MAIN_B, "image": 256, "heatmap": 64, "k": MAIN_KV,
+              "style": "s2t+t2s", "occlusion": True, "dtype": "bf16 autocast, bf16 style",
+              "setup_s": setup_s, "adapt_steps": adapt_steps, "ms_per_step": step_s * 1e3,
+              "img_per_s": MAIN_B / step_s, "max_memory_allocated": peak,
+              "loss_all_last": float(losses[-1]["loss_all"]),
+              "pretrain_loss": float(pre_metrics["loss_all"]),
+              "eval_loss": float(eval_loss), "launches": launches,
+              "launches_per_adapt_step": step_launches[-1],
+              "launches_pretrain_step": pre_launches, "launches_eval_step": eval_launches,
+              "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line()}
+    if unfused is not None:
+        result["unfused"] = {k: unfused[k] for k in ("ms_per_step", "img_per_s",
+                                                     "max_memory_allocated")}
+    emit(result)
+    return result
 
 
-def profile_adapt_step(adapt_step, out_dir, step_ms):
+def profile_adapt_step(adapt_step, out_dir, step_ms, file_name):
     """Device time by kernel and kernel group over one adapt step
-    (torch.profiler); the idle share is taken against ``step_ms``, the
-    unprofiled step time, since the profiler slows the host."""
+    (torch.profiler), into ``out_dir/file_name.json``; the idle share is taken
+    against ``step_ms``, the unprofiled step time, since the profiler slows
+    the host."""
     import re
 
     import torch
@@ -443,9 +732,9 @@ def profile_adapt_step(adapt_step, out_dir, step_ms):
                "kernel_launches": sum(r["calls"] for r in rows),
                "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1]["device_ms"]))}
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_adapt_step.json"), "w") as f:
+    with open(os.path.join(out_dir, file_name + ".json"), "w") as f:
         json.dump(dict(summary, kernels=rows), f, indent=1)
-    emit(dict({"phase": "profile"}, **summary, top=rows[:8]))
+    emit(dict({"phase": "profile", "file": file_name}, **summary, top=rows[:8]))
 
 
 def main(argv=None) -> int:
@@ -477,17 +766,33 @@ def main(argv=None) -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    path = _build.build("occlusion_warp")
-    _build.load("occlusion_warp")
-    emit({"phase": "build", "kernels": ["occlusion_warp"],
-          "seconds": time.perf_counter() - t0, "library": os.path.relpath(path, REPO)})
+    paths = _build.build(*_build.KERNELS)
+    for name in _build.KERNELS:
+        _build.load(name)
+    emit({"phase": "build", "kernels": list(_build.KERNELS),
+          "seconds": time.perf_counter() - t0,
+          "libraries": [os.path.relpath(p, REPO) for p in paths]})
 
-    row = phase_kernel(device)
+    from uda_poseestimation_torch.models import resnet101
+
+    shapes = fused_gemm_shapes(resnet101(fuse_bn=True), MAIN_B, 256)
+    rows = {"occlusion_warp": phase_kernel_occlusion_warp(device),
+            "matmul_stats": phase_kernel_matmul_stats(device, shapes),
+            "warp_gather": phase_kernel_warp_gather(device)}
     phase_parity(device)
-    launches = phase_main(device, args.profile)
-    row["launches"] = launches["occlusion_warp"]
+    phase_parity(device, fuse_bn=True)
+    main_run = phase_main(device, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_run = phase_main(device, args.profile, fuse_bn=True, unfused=main_run)
+    # each row's launches are those of the path it lies on (warp_gather: none),
+    # in all and in the last measured adapt step
+    for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
+                      ("warp_gather", main_run)):
+        rows[name]["launches"] = run["launches"][name]
+        rows[name]["launches_per_adapt_step"] = run["launches_per_adapt_step"][name]
 
-    emit({"kernels": [row]})
+    emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

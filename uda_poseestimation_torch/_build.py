@@ -21,6 +21,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# every kernel of the port, one source each
+KERNELS = ("occlusion_warp", "matmul_stats", "warp_gather")
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -44,29 +46,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source exists.
+def build(*names: str) -> list:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist yet, one
+    ``nvcc`` process per source, all started together; returns the library
+    paths in the order of ``names``.
 
-    The compiler writes to a per-process temporary name that is renamed into
+    Each compiler writes to a per-process temporary name that is renamed into
     place, so concurrent processes never load a half-written file.
     """
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((name, cmd, tmp, out, proc))
+    failed = []
+    for name, cmd, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n"
+                          f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)))
+            _loaded[name] = ctypes.CDLL(str(build(name)[0]))
         return _loaded[name]

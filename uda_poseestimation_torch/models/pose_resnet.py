@@ -9,6 +9,8 @@ are the reference's state-dict keys (``backbone.*``, ``upsampling.{0..8}``,
 
 ``dtype=torch.bfloat16`` runs the forward under bf16 autocast with float32
 parameters and BatchNorm statistics, like the JAX model's ``dtype``.
+``fuse_bn`` selects the backbone's fused 1x1-conv + BatchNorm-statistics
+path in train mode (``models/resnet.py``); None reads ``UDA_BN_FUSE``.
 """
 
 from __future__ import annotations
@@ -69,15 +71,17 @@ class PoseResNet(nn.Module):
 
 
 def pose_resnet101(num_keypoints: int, deconv_with_bias: bool = False,
-                   dtype: torch.dtype = torch.float32) -> PoseResNet:
+                   dtype: torch.dtype = torch.float32,
+                   fuse_bn: Optional[bool] = None) -> PoseResNet:
     """Simple Baseline with ResNet-101 (reference pose_resnet.py:102-112).
     The reference's 0.1x backbone learning rate is ``StepConfig.finetune``."""
-    return PoseResNet(resnet_lib.resnet101(), num_keypoints,
+    return PoseResNet(resnet_lib.resnet101(fuse_bn=fuse_bn), num_keypoints,
                       deconv_with_bias=deconv_with_bias, dtype=dtype)
 
 
 def pose_resnet50(num_keypoints: int, deconv_with_bias: bool = False,
-                  dtype: torch.dtype = torch.float32) -> PoseResNet:
+                  dtype: torch.dtype = torch.float32,
+                  fuse_bn: Optional[bool] = None) -> PoseResNet:
     """Simple Baseline with ResNet-50 (reference pose_resnet.py:116-126)."""
-    return PoseResNet(resnet_lib.resnet50(), num_keypoints,
+    return PoseResNet(resnet_lib.resnet50(fuse_bn=fuse_bn), num_keypoints,
                       deconv_with_bias=deconv_with_bias, dtype=dtype)

@@ -8,16 +8,25 @@ reference's torch state-dict keys (``conv1``, ``bn1``,
 checkpoints load directly.
 
 BatchNorm follows Flax, not torch (see ``BatchNorm2d``).
+
+``fuse_bn`` (the JAX package's ``UDA_BN_FUSE=1``, read when ``None``)
+routes each train-mode Bottleneck's conv1, conv3 and downsample 1x1 convs and
+their BatchNorms through the fused conv + statistics GEMM
+(``models/fused_bn.py``, the ``matmul_stats`` kernel on the card). Eval mode
+and the modules, hence the state dict, are the same either way.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .fused_bn import conv1x1_bn_train
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -70,7 +79,9 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fuse_bn: bool = False):
+        # fuse_bn is accepted for a uniform constructor and ignored, as in
+        # the JAX package: the block's only 1x1 conv is its shortcut
         super().__init__()
         self.conv1 = conv3x3(inplanes, planes, stride)
         self.bn1 = BatchNorm2d(planes)
@@ -92,8 +103,9 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fuse_bn: bool = False):
         super().__init__()
+        self.fuse_bn = fuse_bn
         self.conv1 = conv1x1(inplanes, planes)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv3x3(planes, planes, stride)  # torchvision v1: stride on 3x3
@@ -105,20 +117,30 @@ class Bottleneck(nn.Module):
             conv1x1(inplanes, planes * self.expansion, stride),
             BatchNorm2d(planes * self.expansion)) if downsample else None)
 
+    def _conv_bn_1x1(self, conv, bn, x):
+        """``bn(conv(x))``, fused in train mode when ``fuse_bn`` is on."""
+        if self.fuse_bn and self.training:
+            return conv1x1_bn_train(conv, bn, x)
+        return bn(conv(x))
+
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self.conv1(x)))
+        identity = x if self.downsample is None else self._conv_bn_1x1(*self.downsample, x)
+        y = self.relu(self._conv_bn_1x1(self.conv1, self.bn1, x))
         y = self.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self._conv_bn_1x1(self.conv3, self.bn3, y)
         return self.relu(y + identity)
 
 
 class ResNet(nn.Module):
     """Headless ResNet: NCHW in, stride-32 NCHW feature map out."""
 
-    def __init__(self, block, stage_sizes: Sequence[int]):
+    def __init__(self, block, stage_sizes: Sequence[int],
+                 fuse_bn: Optional[bool] = None):
         super().__init__()
         self.block = block
+        # None reads the JAX package's flag, with its meaning
+        self.fuse_bn = (os.environ.get("UDA_BN_FUSE") == "1" if fuse_bn is None
+                        else bool(fuse_bn))
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -131,7 +153,8 @@ class ResNet(nn.Module):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 # projection shortcut where spatial or channel dims change
                 downsample = i == 0 and (stride != 1 or block.expansion != 1)
-                blocks.append(block(inplanes, planes, stride, downsample))
+                blocks.append(block(inplanes, planes, stride, downsample,
+                                    fuse_bn=self.fuse_bn))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
@@ -178,8 +201,8 @@ def reset_resnet_(module: nn.Module, generator: Optional[torch.Generator]):
 
 
 def _make(block, stage_sizes):
-    def ctor():
-        return ResNet(block, stage_sizes)
+    def ctor(fuse_bn: Optional[bool] = None):
+        return ResNet(block, stage_sizes, fuse_bn=fuse_bn)
     return ctor
 
 
