@@ -15,9 +15,12 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             with the L2 flushed before every launch, and the bound:
             occlusion_warp (equality required), matmul_stats at the 15
             distinct (M, K, N) of pose_resnet101's fused 1x1 convs at b=32
-            in bf16, plus f32 and ragged shapes (y within one bf16 ulp or
-            the f32 summation bound, statistics within 1e-5 of the sums of
-            their own y), and warp_gather (equality required).
+            in bf16, plus f32, ragged, unaligned and small-grid shapes (y
+            within one bf16 ulp or the f32 summation bound, statistics
+            within 1e-5 of the sums of their own y, a second call equal bit
+            for bit), each shape's plan and the mma.sync variant's time at
+            it, and the host time of one call; and warp_gather (equality
+            required).
 4. parity   one f32 adapt step at small width (tiny PoseResNet, 64² images,
             b=4) on the card and on the CPU from the same weights, batch and
             occlusion draws, compared to stated tolerances; then the same
@@ -34,8 +37,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 6. main_bn_fuse  the same with pose_resnet101(fuse_bn=True), the
             UDA_BN_FUSE=1 training path: matmul_stats must launch 70 times
             per train-mode forward (210 per adapt step at k=1, 70 for the
-            pretrain step, 0 for eval) and occlusion_warp once per adapt
-            step; ms/step, img/s and peak memory beside phase main's.
+            pretrain step, 0 for eval), all of its tma variant, and
+            occlusion_warp once per adapt step; ms/step, img/s and peak
+            memory beside phase main's.
 
 Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
@@ -241,28 +245,6 @@ def phase_kernel_occlusion_warp(device):
     return row
 
 
-def fused_gemm_shapes(backbone, b, size):
-    """(M, K, N) -> calls per train-mode forward of a fused ResNet backbone
-    at batch ``b`` and ``size``² images: each Bottleneck's conv1 at its input
-    resolution, conv3 and the projection shortcut at its output resolution
-    (the stem and the max-pool divide the size by 4)."""
-    from uda_poseestimation_torch.models import Bottleneck
-
-    counts = collections.Counter()
-    hw = size // 4
-    for block in backbone.modules():
-        if not isinstance(block, Bottleneck):
-            continue
-        out_hw = hw // block.conv2.stride[0]
-        counts[(b * hw * hw, block.conv1.in_channels, block.conv1.out_channels)] += 1
-        counts[(b * out_hw * out_hw, block.conv3.in_channels, block.conv3.out_channels)] += 1
-        if block.downsample is not None:
-            conv = block.downsample[0]
-            counts[(b * out_hw * out_hw, conv.in_channels, conv.out_channels)] += 1
-        hw = out_hw
-    return counts
-
-
 def _gemm_bound(m, k, n, elt, peak):
     """(bound ms, bytes, flops) of one matmul_stats call: x, w and y once,
     s1 and s2 (f32); 2MKN operations at ``peak``."""
@@ -271,22 +253,29 @@ def _gemm_bound(m, k, n, elt, peak):
     return max(n_bytes / HBM_BYTES_PER_S, n_flops / peak) * 1e3, n_bytes, n_flops
 
 
-def _check_matmul_stats(x, w, tag):
-    """matmul_stats against matmul_stats_plain on the card. y: within one
-    bf16 ulp (bf16 only) plus twice the f32 summation bound
-    K * 2^-24 * sum|x||w| (the two GEMMs sum in other orders; where a sum
-    cancels to near zero, its f32 error exceeds a bf16 ulp of the result);
-    s1/s2: within 1e-5 of the magnitude sums of the f64 sums of the
-    kernel's own y (the kernel adds at most ~120 f32 values in a chain).
-    Returns [max abs error of y, outputs beyond one bf16 ulp, the largest
-    error / bound]."""
+def _check_matmul_stats(x, w, tag, variant=None):
+    """The matmul_stats kernel (``_plan``'s variant, or ``variant``) against
+    matmul_stats_plain on the card. y: within one bf16 ulp (bf16 only) plus
+    twice the f32 summation bound K * 2^-24 * sum|x||w| (the two GEMMs sum
+    in other orders; where a sum cancels to near zero, its f32 error exceeds
+    a bf16 ulp of the result); s1/s2: within 1e-5 of the magnitude sums of
+    the f64 sums of the kernel's own y (the kernel adds at most ~160 f32
+    values in a chain); a second call equal bit for bit. Returns [variant,
+    max abs error of y, outputs beyond one bf16 ulp, the largest error /
+    bound]."""
     import torch
 
-    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats, matmul_stats_plain
+    from uda_poseestimation_torch.ops.bn_fuse import (_matmul_stats_cuda, matmul_stats,
+                                                      matmul_stats_plain)
 
-    y, s1, s2 = matmul_stats(x, w)
+    before = dict(matmul_stats.launches_by_variant)
+    y, s1, s2 = _matmul_stats_cuda(x, w, x.dtype, variant)
+    ran = [v for v, c in matmul_stats.launches_by_variant.items() if c != before[v]]
+    again = _matmul_stats_cuda(x, w, x.dtype, variant)
     yp, _, _ = matmul_stats_plain(x, w, x.dtype)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((y, s1, s2), again)):
+        raise AssertionError(f"matmul_stats {ran} does not repeat bit for bit {tag}")
     k = x.shape[1]
     y, yp = y.float(), yp.float()
     err = (y - yp).abs()
@@ -299,27 +288,47 @@ def _check_matmul_stats(x, w, tag):
         beyond_ulp = int((err > ulp).sum())
         bound += ulp
     if not bool((err <= bound).all()):
-        raise AssertionError(f"matmul_stats y != plain {tag}: max abs err "
+        raise AssertionError(f"matmul_stats {ran} y != plain {tag}: max abs err "
                              f"{float(err.max())}, worst err/bound "
                              f"{float((err / bound).max())}")
     y64 = y.double()
     for name, got, want, mag in (("s1", s1, y64.sum(0), y64.abs().sum(0)),
                                  ("s2", s2, (y64 * y64).sum(0), (y64 * y64).sum(0))):
         if not bool(((got.double() - want).abs() <= 1e-5 * mag).all()):
-            raise AssertionError(f"matmul_stats {name} != sum of its y {tag}: "
+            raise AssertionError(f"matmul_stats {ran} {name} != sum of its y {tag}: "
                                  f"max abs err {float((got.double() - want).abs().max())}")
-    return [float(err.max()), beyond_ulp, float((err / bound).max())]
+    return [ran[0], float(err.max()), beyond_ulp, float((err / bound).max())]
+
+
+def host_us(fn, calls=200):
+    """Median host wall time of one call of ``fn`` (µs), not synchronized:
+    what the caller's thread spends to enqueue it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def phase_kernel_matmul_stats(device, shapes):
     """matmul_stats against matmul_stats_plain at the fused path's shapes
-    (bf16) and at f32 and ragged ones, then per-shape times; returns its
-    table row, whose times are per launch: the mean over the calls of one
-    train-mode forward, each shape weighted by its calls. The phase line
-    also gives their sums over the forward."""
+    (bf16) and at f32, ragged, unaligned and small-grid ones (each also
+    repeated bit for bit), then per-shape times of the planned kernel, of
+    the mma.sync variant at the same shape, of the plain version and of
+    cuBLAS, and the host time of one call; returns its table row, whose
+    times are per launch: the mean over the calls of one train-mode
+    forward, each shape weighted by its calls. The phase line also gives
+    their sums over the forward."""
     import torch
 
-    from uda_poseestimation_torch.ops.bn_fuse import matmul_stats, matmul_stats_plain
+    from uda_poseestimation_torch.ops.bn_fuse import (_matmul_stats_cuda, kernel_plan,
+                                                      matmul_stats, matmul_stats_plain)
 
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -330,36 +339,63 @@ def phase_kernel_matmul_stats(device, shapes):
 
     max_err = 0.0
     checks = []
-    extra = [((200, 70, 130), torch.float32), ((1000, 24, 200), torch.float32),
-             ((8192, 1024, 256), torch.float32), ((2048, 512, 2048), torch.float32),
-             ((200, 70, 130), torch.bfloat16), ((77, 64, 33), torch.bfloat16)]
-    for shape, dtype in [(s, torch.bfloat16) for s in sorted(shapes)] + extra:
+    # f32 (simt); bf16 K % 8 != 0 and N % 8 != 0 (mma_sync); ragged M, N, K
+    # and a long K on grids under one wave (tma); N < 64 (tma, BN 64); an
+    # operand 16-byte unaligned (mma_sync); the mma_sync variant at a
+    # main-path shape
+    extra = [((200, 70, 130), torch.float32, None), ((1000, 24, 200), torch.float32, None),
+             ((8192, 1024, 256), torch.float32, None),
+             ((2048, 512, 2048), torch.float32, None),
+             ((200, 70, 130), torch.bfloat16, None), ((77, 64, 33), torch.bfloat16, None),
+             ((1000, 72, 200), torch.bfloat16, None), ((256, 4096, 256), torch.bfloat16, None),
+             ((77, 64, 40), torch.bfloat16, None), ((1000, 64, 136), torch.bfloat16, "offset"),
+             ((8192, 1024, 256), torch.bfloat16, "mma_sync")]
+    for shape, dtype, how in [(s, torch.bfloat16, None) for s in sorted(shapes)] + extra:
         x, w = operands(*shape, dtype)
-        check = _check_matmul_stats(x, w, f"at {shape} {dtype}")
+        if how == "offset":  # x starts 8 bytes past an aligned address
+            x = torch.empty(x.numel() + 4, dtype=dtype, device=device)[4:].view_as(x).copy_(x)
+        check = _check_matmul_stats(x, w, f"at {shape} {dtype} {how or ''}",
+                                    "mma_sync" if how == "mma_sync" else None)
         checks.append([*shape, str(dtype).split(".")[1], *check])
-        max_err = max(max_err, check[0])
+        max_err = max(max_err, check[1])
 
     flush = torch.empty(128 * 2**20 // 4, device=device)  # > the 50 MB L2
     per_shape = []
     total = collections.Counter()
     for shape in sorted(shapes):
         x, w = operands(*shape, torch.bfloat16)
+        plan = kernel_plan(x, w)
         ms = cuda_ms(lambda: matmul_stats(x, w), 20, flush)
+        mma_ms = cuda_ms(lambda: _matmul_stats_cuda(x, w, torch.bfloat16, "mma_sync"), 20,
+                         flush)
         plain_ms = cuda_ms(lambda: matmul_stats_plain(x, w, torch.bfloat16), 5, flush)
         lib_ms = cuda_ms(lambda: torch.matmul(x, w.t()), 20, flush)
         bound_ms, n_bytes, n_flops = _gemm_bound(*shape, 2, BF16_FLOPS)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         calls = shapes[shape]
-        per_shape.append({"mkn": list(shape), "calls": calls, "ms": ms,
-                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "bound_ms": bound_ms,
+        per_shape.append({"mkn": list(shape), "calls": calls, "plan": plan._asdict(),
+                          "ms": ms, "mma_sync_ms": mma_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
                           "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
-                          "tflops": n_flops / ms * 1e-9})
+                          "x_bound": ms / bound_ms, "gbps": n_bytes / ms * 1e-6,
+                          "hbm_share": n_bytes / ms * 1e3 / HBM_BYTES_PER_S,
+                          "tflops": n_flops / ms * 1e-9,
+                          "bf16_peak_share": n_flops / ms * 1e3 / BF16_FLOPS})
         total["ms"] += calls * ms
+        total["mma_sync_ms"] += calls * mma_ms
         total["plain_ms"] += calls * plain_ms
         total["library_ms"] += calls * lib_ms
         total["bound_ms"] += calls * bound_ms
         total["bytes_bound_ms"] += calls * bound_ms * (bytes_ms >= bound_ms)
+
+    # host time of one call at the commonest shape, without synchronizing
+    x, w = operands(8192, 256, 1024, torch.bfloat16)
+    host = {"mkn": [8192, 256, 1024], "calls": 200,
+            "matmul_stats_us": host_us(lambda: matmul_stats(x, w)),
+            "tma_us": host_us(lambda: _matmul_stats_cuda(x, w, torch.bfloat16)),
+            "mma_sync_us": host_us(
+                lambda: _matmul_stats_cuda(x, w, torch.bfloat16, "mma_sync"))}
+
     calls = sum(shapes.values())
     row = {
         "name": "matmul_stats", "route": "cuda",
@@ -373,17 +409,21 @@ def phase_kernel_matmul_stats(device, shapes):
         "library_ms": total["library_ms"] / calls,
     }
     emit({"phase": "kernel", "name": "matmul_stats",
-          "checks": "m, k, n, dtype, max abs err of y, outputs beyond one bf16 ulp, "
-                    "largest err / bound",
+          "checks": "m, k, n, dtype, variant, max abs err of y, outputs beyond one bf16 "
+                    "ulp, largest err / bound (each call also repeated bit for bit)",
           "check_results": checks,
           "max_abs_err": max_err, "calls_per_forward": calls,
-          "ms_per_forward": total["ms"], "plain_ms_per_forward": total["plain_ms"],
+          "ms_per_forward": total["ms"], "mma_sync_ms_per_forward": total["mma_sync_ms"],
+          "plain_ms_per_forward": total["plain_ms"],
           "library_ms_per_forward": total["library_ms"],
           "bound_ms_per_forward": total["bound_ms"],
           "bytes_bound_ms_per_forward": total["bytes_bound_ms"],
-          "ms_per_launch": row["ms"], "bound_ms_per_launch": row["bound_ms"],
+          "ms_per_launch": row["ms"], "mma_sync_ms_per_launch": total["mma_sync_ms"] / calls,
+          "bound_ms_per_launch": row["bound_ms"],
+          "faster_than_mma_sync_at_every_shape": all(r["ms"] < r["mma_sync_ms"]
+                                                     for r in per_shape),
           "library": "torch.matmul of the same bf16 operands (cuBLAS), y only",
-          "per_shape": per_shape})
+          "host": host, "per_shape": per_shape})
     return row
 
 
@@ -518,6 +558,7 @@ def phase_parity(device, fuse_bn=False):
     import numpy as np
     import torch
 
+    from uda_poseestimation_torch.models.resnet import fused_gemm_shapes
     from uda_poseestimation_torch.ops.bn_fuse import matmul_stats
     from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step
 
@@ -589,6 +630,8 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
     import torch
 
     from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.models.resnet import fused_gemm_shapes
+    from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
     from uda_poseestimation_torch.parallel import (
         StepConfig, create_state, make_adapt_step, make_eval_step, make_pretrain_step)
 
@@ -618,6 +661,7 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    matmul_stats.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
     def counted(fn, *args, **kwargs):
         """``fn``'s result and the launches each kernel made in it."""
@@ -675,6 +719,11 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
             f"launches per adapt step {step_launches}, pretrain step {pre_launches}, "
             f"eval step {eval_launches}, in all {launches}; the path needs "
             f"{want_step}, {want_pre}, {want_eval}, in all {want}")
+    # every fused GEMM of the path is bf16 with K and N multiples of 8: tma
+    by_variant = dict(matmul_stats.launches_by_variant)
+    if by_variant != dict(dict.fromkeys(VARIANTS, 0), tma=want["matmul_stats"]):
+        raise AssertionError(f"matmul_stats launches by variant {by_variant}: the path "
+                             f"needs all {want['matmul_stats']} to be tma")
     result = {"phase": "main_bn_fuse" if fuse_bn else "main", "model": "pose_resnet101",
               "fuse_bn": fuse_bn, "num_keypoints": MAIN_K,
               "batch": MAIN_B, "image": 256, "heatmap": 64, "k": MAIN_KV,
@@ -686,6 +735,7 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
               "eval_loss": float(eval_loss), "launches": launches,
               "launches_per_adapt_step": step_launches[-1],
               "launches_pretrain_step": pre_launches, "launches_eval_step": eval_launches,
+              "matmul_stats_launches_by_variant": by_variant,
               "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line()}
     if unfused is not None:
         result["unfused"] = {k: unfused[k] for k in ("ms_per_step", "img_per_s",
@@ -773,7 +823,7 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(p, REPO) for p in paths]})
 
-    from uda_poseestimation_torch.models import resnet101
+    from uda_poseestimation_torch.models.resnet import fused_gemm_shapes, resnet101
 
     shapes = fused_gemm_shapes(resnet101(fuse_bn=True), MAIN_B, 256)
     rows = {"occlusion_warp": phase_kernel_occlusion_warp(device),

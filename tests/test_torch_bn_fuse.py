@@ -520,20 +520,33 @@ def cuda():
     return torch.device("cuda")
 
 
+# each branch of the plan in bf16 (ops/bn_fuse.py::_plan; f32 runs simt):
+# mma_sync (K % 8 != 0, N % 8 != 0); tma at BN 64 (N <= 512) and BN 128;
+# N = 64; grids under one wave ((1000, 72, 200) with ragged M, N and K,
+# (256, 4096, 256) with 64 k-steps); a one-block grid (77, 64, 40); row
+# groups walking several tiles
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(200, 70, 130), (77, 64, 33), (8192, 1024, 256),
-                                   (2048, 512, 2048)])
+                                   (2048, 512, 2048), (4096, 256, 64), (2048, 2048, 512),
+                                   (256, 4096, 256), (1000, 72, 200), (77, 64, 40),
+                                   (32768, 128, 512)])
 def test_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
     """The CUDA kernel against the plain version on the card: y as in the
     module docstring, and its statistics against the sums of its own y; one
-    launch counted."""
+    launch counted, of the variant that ``_plan`` picks."""
+    from uda_poseestimation_torch.ops.bn_fuse import kernel_plan
+
     tdt = getattr(torch, dtype)
     x, w = (torch.from_numpy(a).to(cuda, tdt) for a in _gemm_inputs(9, m, k, n))
+    variant = kernel_plan(x, w).variant
     before = matmul_stats.launches
+    by_variant = dict(matmul_stats.launches_by_variant)
     y, s1, s2 = matmul_stats(x, w)
     torch.cuda.synchronize()
     assert matmul_stats.launches == before + 1
+    by_variant[variant] += 1
+    assert matmul_stats.launches_by_variant == by_variant
     yp = matmul_stats_plain(x, w, tdt)[0].float().cpu().numpy()
     y = y.float().cpu().numpy()
     if dtype == "float32":
@@ -542,6 +555,59 @@ def test_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
         _bf16_gemm_close(y, yp, x.float().cpu().numpy(), w.float().cpu().numpy())
     y64 = y.astype(np.float64)
     _stats_close(s1.cpu().numpy(), s2.cpu().numpy(), y, y64.sum(0), (y64 ** 2).sum(0), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [None, "mma_sync"])
+@pytest.mark.parametrize("m,k,n", [(8192, 256, 1024), (2048, 2048, 512), (1000, 72, 200)])
+def test_kernel_repeats_bit_for_bit_on_card(cuda, m, k, n, variant):
+    """No float atomics: two calls give the same y, s1 and s2 bit for bit,
+    with the last-block reduction of the statistics (its partial rows meet
+    in a fixed order)."""
+    from uda_poseestimation_torch.ops.bn_fuse import _matmul_stats_cuda
+
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _gemm_inputs(11, m, k, n))
+    first = _matmul_stats_cuda(x, w, torch.bfloat16, variant)
+    for _ in range(3):
+        again = _matmul_stats_cuda(x, w, torch.bfloat16, variant)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_a_tma_plan_for_unaligned_operands(cuda):
+    """Forcing the tma variant where no tensor map can describe x raises; it
+    never runs another variant instead."""
+    from uda_poseestimation_torch.ops.bn_fuse import _matmul_stats_cuda
+
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _gemm_inputs(12, 64, 72, 64))
+    shifted = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)[4:].view_as(x)
+    with pytest.raises(ValueError, match="no tma plan"):
+        _matmul_stats_cuda(shifted.copy_(x), w, torch.bfloat16, "tma")
+
+
+@pytest.mark.gpu
+def test_launcher_rejects_partials_of_another_size(cuda):
+    """The mma_sync and simt launcher sizes its grid from the shape; given
+    partial rows for another count of row tiles it refuses to launch (-3)
+    rather than write past them."""
+    from uda_poseestimation_torch.ops.bn_fuse import _launcher
+
+    lib = _launcher()
+    m, k, n = 300, 72, 64
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for dtype, tiles in ((torch.bfloat16, 3), (torch.float32, 5)):
+        x = torch.zeros(m, k, dtype=dtype, device=cuda)
+        w = torch.zeros(n, k, dtype=dtype, device=cuda)
+        y = torch.empty(m, n, dtype=dtype, device=cuda)
+        part = torch.zeros(2, tiles + 1, n, device=cuda)
+        stats = torch.zeros(2, n, device=cuda)
+        for groups, want in ((tiles - 1, -3), (tiles + 1, -3), (tiles, 0)):
+            err = lib.matmul_stats_launch(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+                part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), m, k, n,
+                groups, int(dtype == torch.bfloat16), stream)
+            assert err == want, (dtype, groups)
+        torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -18,6 +18,7 @@ and the modules, hence the state dict, are the same either way.
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 from typing import Optional, Sequence
@@ -198,6 +199,27 @@ def reset_resnet_(module: nn.Module, generator: Optional[torch.Generator]):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
             m.reset_running_stats()
+
+
+def fused_gemm_shapes(backbone: ResNet, b: int, size: int) -> collections.Counter:
+    """(M, K, N) -> calls per train-mode forward of ``matmul_stats`` in a
+    fused ResNet backbone at batch ``b`` and ``size``² images: each
+    Bottleneck's conv1 at its input resolution, conv3 and the projection
+    shortcut at its output resolution (the stem and the max-pool divide the
+    size by 4)."""
+    counts = collections.Counter()
+    hw = size // 4
+    for block in backbone.modules():
+        if not isinstance(block, Bottleneck):
+            continue
+        out_hw = hw // block.conv2.stride[0]
+        counts[(b * hw * hw, block.conv1.in_channels, block.conv1.out_channels)] += 1
+        counts[(b * out_hw * out_hw, block.conv3.in_channels, block.conv3.out_channels)] += 1
+        if block.downsample is not None:
+            conv = block.downsample[0]
+            counts[(b * out_hw * out_hw, conv.in_channels, conv.out_channels)] += 1
+        hw = out_hw
+    return counts
 
 
 def _make(block, stage_sizes):
