@@ -13,14 +13,19 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             main paths' shapes, then CUDA-event times of the kernel, the
             plain version and (where one exists) one PyTorch library call,
             with the L2 flushed before every launch, and the bound:
-            occlusion_warp (equality required), matmul_stats at the 15
+            occlusion_warp (equality required, also at every tile
+            geometry, batch 1 and 33, 1-5 channels and out-of-range
+            coefficients; its gather half timed alone through warp_gather
+            and torch.gather on its index maps), matmul_stats at the 15
             distinct (M, K, N) of pose_resnet101's fused 1x1 convs at b=32
             in bf16, plus f32, ragged, unaligned and small-grid shapes (y
             within one bf16 ulp or the f32 summation bound, statistics
             within 1e-5 of the sums of their own y, a second call equal bit
             for bit), each shape's plan and the mma.sync variant's time at
             it, and the host time of one call; and warp_gather (equality
-            required).
+            required at the edge shapes too; timed on
+            random indices and on the heatmap reconstruction's maps). The
+            gathers' records also count the distinct 32-byte sectors read.
 4. parity   one f32 adapt step at small width (tiny PoseResNet, 64² images,
             b=4) on the card and on the CPU from the same weights, batch and
             occlusion draws, compared to stated tolerances; then the same
@@ -70,9 +75,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-# the kernel's per-pixel index math: 4 affine stages of 4 fmul + 6 fadd,
-# the centering and rectangle remap (~10 more), as written in the source
-WARP_FLOPS_PER_PIXEL = 50
+# the kernel's per-pixel index math, as written in the source: 4 affine
+# stages of 4 fmul + 6 fadd, 4 fadd rounding, 2 fadd re-centering, 2 max
+# tracking the bounds and 4 min/max clipping; the centering, the rectangle
+# remap and the source index (~16 more)
+WARP_FLOPS_PER_PIXEL = 104
 
 MAIN_B, MAIN_K, MAIN_KV = 32, 21, 1
 # ~1 ms at the H100's ~2 GHz SM clock (see cuda_ms)
@@ -173,37 +180,96 @@ def warp_inputs(seed, b, size, ties, device):
     return imgs.to(device), coeffs.to(device), rect.to(device)
 
 
-def phase_kernel_occlusion_warp(device):
-    """occlusion_warp against occlusion_warp_plain; returns its table row."""
+def extreme_coeffs(coeffs, rect):
+    """Coefficients and rectangles whose stage values leave every map, one
+    kind per sample (B >= 6): |v| >= 2^22, beyond int32, +inf, -inf, NaN
+    (which converts to 0 and stays valid) and inf * 0, and rectangle shifts
+    beyond 2^22, one wrapping in int32 (the kernel's integer remap)."""
+    coeffs, rect = coeffs.clone(), rect.clone()
+    coeffs[0, 0, :2] *= 1e5
+    coeffs[1, 3, 0], coeffs[1, 1, 4] = 3e9, -1e12
+    coeffs[2, 3, 2], coeffs[2, 2, 5] = float("inf"), float("-inf")
+    coeffs[3, 2, 0] = float("nan")
+    coeffs[4, 0, 3], coeffs[4, 0, 4], coeffs[4, 0, 0] = float("inf"), 0.0, float("inf")
+    rect[5, 4], rect[5, 0], rect[5, 1] = 1 << 23, 0, 1 << 30
+    rect[4, 5], rect[4, 2], rect[4, 3] = -(1 << 31), 5, (1 << 31) - 1  # shift wraps
+    return coeffs, rect
+
+
+def _check_occlusion_warp(imgs, coeffs, rect, tag, exacts=(True, False)):
+    """occlusion_warp against occlusion_warp_plain on the card, in each
+    layout and ``exact``, a second call equal bit for bit; then its index
+    maps, read through an image whose values are index + 1. Returns the
+    number of comparisons and the largest absolute error seen."""
     import torch
 
     from uda_poseestimation_torch.ops.occlusion_warp import (
         occlusion_indices_plain, occlusion_warp, occlusion_warp_plain)
 
+    checks, err = 0, 0.0
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        x = imgs.contiguous(memory_format=fmt)
+        for exact in exacts:
+            got = occlusion_warp(x, coeffs, rect, exact=exact)
+            again = occlusion_warp(x, coeffs, rect, exact=exact)
+            want = occlusion_warp_plain(x, coeffs, rect, exact=exact)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not (torch.equal(got, want) and torch.equal(again, got)
+                    and got.is_contiguous(memory_format=fmt)):
+                raise AssertionError(
+                    f"occlusion_warp != plain {tag} (exact {exact}, {fmt}): max abs err "
+                    f"{float((got - want).abs().max())}, repeat equal "
+                    f"{torch.equal(again, got)}")
+            checks += 1
+    b, _, size, _ = imgs.shape
+    iota = torch.arange(1, size * size + 1, device=imgs.device, dtype=torch.float32)
+    iota = iota.view(1, 1, size, size).expand(b, 1, size, size).contiguous()
+    ix, iy, valid = occlusion_indices_plain(coeffs, rect, size)
+    want_idx = torch.where(valid, iy * size + ix + 1, 0).to(torch.float32)
+    if not torch.equal(occlusion_warp(iota, coeffs, rect)[:, 0], want_idx):
+        raise AssertionError(f"occlusion_warp index map != plain {tag}")
+    return checks + 1, err
+
+
+def sector_bytes(byte_addr):
+    """Bytes of the distinct 32-byte sectors that the byte addresses touch."""
+    import torch
+
+    return int(torch.unique(byte_addr.reshape(-1) // 32).numel()) * 32
+
+
+def phase_kernel_occlusion_warp(device):
+    """occlusion_warp against occlusion_warp_plain; returns its table row."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.ops.occlusion_warp import (
+        occlusion_indices_plain, occlusion_warp, occlusion_warp_plain)
+    from uda_poseestimation_torch.ops.warp_gather import warp_gather
+
     b, size = MAIN_B, 256
-    max_err = 0.0
-    checks = 0
+    checks, max_err = 0, 0.0
+
+    def check(*args, **kwargs):
+        nonlocal checks, max_err
+        n, err = _check_occlusion_warp(*args, **kwargs)
+        checks, max_err = checks + n, max(max_err, err)
+
     for seed, ties in ((0, False), (1, True), (2, False), (3, True)):
-        imgs, coeffs, rect = warp_inputs(seed, b, size, ties, device)
-        for exact in (True, False):
-            for x in (imgs, imgs.contiguous(memory_format=torch.channels_last)):
-                got = occlusion_warp(x, coeffs, rect, exact=exact)
-                want = occlusion_warp_plain(x, coeffs, rect, exact=exact)
-                torch.cuda.synchronize()
-                max_err = max(max_err, float((got - want).abs().max()))
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"occlusion_warp != plain (seed {seed}, exact {exact}, "
-                        f"channels_last {not x.is_contiguous()}): max abs err {max_err}")
-                checks += 1
-        # index maps, read through an image whose values are index + 1
-        iota = torch.arange(1, size * size + 1, device=device, dtype=torch.float32)
-        iota = iota.view(1, 1, size, size).expand(b, 1, size, size).contiguous()
-        ix, iy, valid = occlusion_indices_plain(coeffs, rect, size)
-        want_idx = torch.where(valid, iy * size + ix + 1, 0).to(torch.float32)
-        if not torch.equal(occlusion_warp(iota, coeffs, rect)[:, 0], want_idx):
-            raise AssertionError(f"occlusion_warp index map != plain (seed {seed})")
-        checks += 1
+        check(*warp_inputs(seed, b, size, ties, device), f"(seed {seed})")
+    # the card tests' shapes: every tile geometry, batch 1 and 33, one to
+    # five channels (two chunks), each layout once with one ``exact`` in
+    # turn; out-of-range stage values
+    rng = np.random.RandomState(5)
+    for i, (s, n, c) in enumerate((s, n, c) for s in (2, 16, 64, 256, 512) for n in (1, 33)
+                                  for c in (1, 2, 3, 4, 5)):
+        imgs, coeffs, rect = warp_inputs(100 + i, n, s, s == 64, device)
+        imgs = torch.from_numpy(rng.rand(n, c, s, s).astype(np.float32)).to(device)
+        check(imgs, coeffs, rect, f"at {(n, c, s, s)}", exacts=(bool(i % 2),))
+    for s in (16, 64):
+        imgs, coeffs, rect = warp_inputs(200 + s, 6, s, False, device)
+        check(imgs, *extreme_coeffs(coeffs, rect), f"with extreme coefficients at {s}")
 
     # timing at the main path's call: channels_last f32 input, exact=False
     imgs, coeffs, rect = warp_inputs(4, b, size, False, device)
@@ -215,14 +281,30 @@ def phase_kernel_occlusion_warp(device):
             cuda_ms(lambda: occlusion_warp(x, coeffs, rect, exact=exact), 50, flush),
             cuda_ms(lambda: occlusion_warp_plain(x, coeffs, rect, exact=exact), 10,
                     flush))
-    # the bytes this run's inputs need: each distinct valid source pixel read
-    # once (C floats), the output written once, the coefficients and rects
+    # the gather half alone: the same call's index maps through warp_gather
+    # over the NCHW copy of the images, and torch.gather on them
     ix, iy, valid = occlusion_indices_plain(coeffs, rect, size)
+    c = x.shape[1]
+    src = torch.where(valid, iy * size + ix, 0).reshape(b, 1, size * size)
+    nchw = imgs.contiguous()
+    maps = [t.reshape(b, size * size) for t in (ix.int(), iy.int(), valid)]
+    if not torch.equal(warp_gather(nchw, *maps, exact=False),
+                       occlusion_warp_plain(nchw, coeffs, rect, exact=False)):
+        raise AssertionError("warp_gather on occlusion_warp's index maps != plain")
+    gather_ms = cuda_ms(lambda: warp_gather(nchw, *maps, exact=False), 50, flush)
+    index = src.expand(b, c, size * size)
+    torch_gather_ms = cuda_ms(lambda: nchw.view(b, c, -1).gather(2, index), 50, flush)
+    # the bytes this run's inputs need: each distinct valid source pixel read
+    # once (C floats), the output written once, the coefficients and rects;
+    # and the sectors they lie in (channels_last: C floats a pixel)
     src = torch.where(valid, iy * size + ix, -1)
     distinct = sum(int(torch.unique(src[i]).numel()) - int(bool((src[i] < 0).any()))
                    for i in range(b))
-    c = x.shape[1]
-    n_bytes = distinct * c * 4 + x.numel() * 4 + coeffs.numel() * 4 + rect.numel() * 4
+    small = coeffs.numel() * 4 + rect.numel() * 4
+    n_bytes = distinct * c * 4 + x.numel() * 4 + small
+    first = (torch.arange(b, device=device).view(b, 1, 1) * size * size + src) * c
+    addr = (first[valid][:, None] + torch.arange(c, device=device)) * 4
+    n_sector_bytes = sector_bytes(addr) + x.numel() * 4 + small
     n_flops = b * size * size * WARP_FLOPS_PER_PIXEL
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     flops_ms = n_flops / F32_FLOPS * 1e3
@@ -235,12 +317,19 @@ def phase_kernel_occlusion_warp(device):
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
+        "gather_only_ms": gather_ms, "torch_gather_ms": torch_gather_ms,
+        "sector_bytes": n_sector_bytes,
     }
     emit({"phase": "kernel", "name": "occlusion_warp", "checks_equal": checks,
           "max_abs_err": max_err, "shape": list(x.shape),
           "ms_exact_false": times[False][0], "plain_ms_exact_false": times[False][1],
           "ms_exact_true": times[True][0], "plain_ms_exact_true": times[True][1],
-          "bytes": n_bytes, "flops": n_flops, "bound_ms": row["bound_ms"],
+          "gather_only_ms": gather_ms, "torch_gather_ms": torch_gather_ms,
+          "gather_only": "warp_gather (and torch.gather) on this call's index maps, "
+                         "NCHW copy of the images, exact=False (torch.gather: f32)",
+          "bytes": n_bytes, "sector_bytes": n_sector_bytes,
+          "sector_bound_ms": n_sector_bytes / HBM_BYTES_PER_S * 1e3,
+          "flops": n_flops, "bound_ms": row["bound_ms"],
           "library": "none: no single PyTorch call computes the staged-rounding chain"})
     return row
 
@@ -427,29 +516,103 @@ def phase_kernel_matmul_stats(device, shapes):
     return row
 
 
+def heatmap_indices(b, size, seed, device):
+    """The heatmap reconstruction's nearest index maps: the translate ->
+    rotate/scale -> shear chain of inverse_warp_heatmaps at ``size`` (ratio
+    4) from aug_params (bench.py's recipe), through compose_nearest_indices;
+    int32 ix, iy (B, size*size) and the mask."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.ops.affine import (_grid, chain_coeffs,
+                                                     compose_nearest_indices)
+
+    angle, tx, ty, shx, shy, scale = torch.from_numpy(
+        aug_params(np.random.RandomState(seed), b, False)).unbind(-1)
+    coeffs = chain_coeffs(angle, tx / 4.0, ty / 4.0, shx, shy, scale)
+    ys, xs = _grid(size, size)
+    fx, fy, valid = compose_nearest_indices(
+        coeffs, xs.expand(b, size, size), ys.expand(b, size, size),
+        torch.ones((b, size, size), dtype=torch.bool), size, size)
+    half = (size - 1) / 2.0
+    return [t.reshape(b, size * size).to(device)
+            for t in ((fx + half).to(torch.int32), (fy + half).to(torch.int32), valid)]
+
+
+def _gather_bytes(hms, ix, iy, valid):
+    """(bytes, sector bytes) a warp_gather call needs: each distinct in-map
+    source pixel of a valid output read once (K floats), or the distinct
+    32-byte sectors those reads touch; the indices, mask and output once."""
+    import torch
+
+    b, k, h, w = hms.shape
+    inside = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    src = torch.where(inside, iy * w + ix, 0).long()
+    distinct = sum(int(torch.unique(src[i][inside[i]]).numel()) for i in range(b))
+    dense = b * h * w * (4 + 4 + 1) + hms.numel() * 4
+    plane = (torch.arange(b, device=hms.device).view(b, 1) * k) * h * w
+    first = (plane + src)[inside]
+    addr = (first[:, None] + torch.arange(k, device=hms.device) * h * w) * 4
+    return distinct * k * 4 + dense, sector_bytes(addr) + dense
+
+
+def _check_warp_gather(hms, ix, iy, valid, tag):
+    """warp_gather against warp_gather_plain on the card: both ``exact``, ix
+    also 4 bytes off its 16-byte alignment (scalar loads and stores), a
+    second call equal bit for bit. Returns the number of comparisons and the
+    largest absolute error seen."""
+    import torch
+
+    from uda_poseestimation_torch.ops.warp_gather import warp_gather, warp_gather_plain
+
+    shifted = torch.empty(ix.numel() + 1, dtype=torch.int32, device=ix.device)[1:]
+    checks, err = 0, 0.0
+    for idx in (ix, shifted.view_as(ix).copy_(ix)):
+        for exact in (True, False):
+            got = warp_gather(hms, idx, iy, valid, exact=exact)
+            again = warp_gather(hms, idx, iy, valid, exact=exact)
+            want = warp_gather_plain(hms, idx, iy, valid, exact=exact)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not (torch.equal(got, want) and torch.equal(again, got)):
+                raise AssertionError(
+                    f"warp_gather != plain {tag} (exact {exact}, ix offset "
+                    f"{idx.data_ptr() % 16}): max abs err "
+                    f"{float((got - want).abs().max())}, repeat equal "
+                    f"{torch.equal(again, got)}")
+            checks += 1
+    return checks, err
+
+
 def phase_kernel_warp_gather(device):
-    """warp_gather against warp_gather_plain at the heatmap warp's shape;
-    returns its table row."""
+    """warp_gather against warp_gather_plain at the heatmap warp's shape and
+    at the card tests' edge shapes; times on random indices
+    (the table row) and on the heatmap reconstruction's index maps; returns
+    its table row."""
     import torch
 
     from uda_poseestimation_torch.ops.warp_gather import warp_gather, warp_gather_plain
 
     b, k, h, w = MAIN_B, MAIN_K, 64, 64
     gen = torch.Generator(device=device).manual_seed(0)
-    hms = torch.randn(b, k, h, w, device=device, generator=gen)
-    # mostly in the map, some just outside each side, ~10% masked off
-    ix = torch.randint(-2, w + 2, (b, h * w), device=device, generator=gen,
-                       dtype=torch.int32)
-    iy = torch.randint(-2, h + 2, (b, h * w), device=device, generator=gen,
-                       dtype=torch.int32)
-    valid = torch.rand(b, h * w, device=device, generator=gen) > 0.1
-    for exact in (True, False):
-        got = warp_gather(hms, ix, iy, valid, exact=exact)
-        want = warp_gather_plain(hms, ix, iy, valid, exact=exact)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"warp_gather != plain (exact {exact}): max abs err "
-                                 f"{float((got - want).abs().max())}")
+
+    def random_indices(b, k, h, w):
+        # mostly in the map, some just outside each side, ~10% masked off
+        hms = torch.randn(b, k, h, w, device=device, generator=gen)
+        ix = torch.randint(-2, w + 2, (b, h * w), device=device, generator=gen,
+                           dtype=torch.int32)
+        iy = torch.randint(-2, h + 2, (b, h * w), device=device, generator=gen,
+                           dtype=torch.int32)
+        return hms, ix, iy, torch.rand(b, h * w, device=device, generator=gen) > 0.1
+
+    results = [_check_warp_gather(*random_indices(*shape), f"at {shape}")
+               for shape in ((1, 1, 1, 1), (3, 5, 17, 23), (32, 21, 64, 64),
+                             (2, 33, 128, 128))]
+    hms, ix, iy, valid = random_indices(b, k, h, w)
+    heat = heatmap_indices(b, h, 0, device)
+    results.append(_check_warp_gather(hms, *heat, "on the heatmap index maps"))
+    checks = sum(n for n, _ in results)
+    max_err = max(err for _, err in results)
 
     flush = torch.empty(128 * 2**20 // 4, device=device)
     times = {exact: (cuda_ms(lambda: warp_gather(hms, ix, iy, valid, exact=exact), 50,
@@ -458,27 +621,35 @@ def phase_kernel_warp_gather(device):
                              flush))
              for exact in (True, False)}
     inside = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
-    src = torch.where(inside, iy * w + ix, 0).long()
-    index = src[:, None].expand(b, k, h * w)
+    index = torch.where(inside, iy * w + ix, 0).long()[:, None].expand(b, k, h * w)
     lib_ms = cuda_ms(lambda: hms.view(b, k, h * w).gather(2, index), 50, flush)
-    # the bytes this run's inputs need: each distinct in-map source pixel of a
-    # valid output read once (K floats), the indices and mask, the output
-    distinct = sum(int(torch.unique(src[i][inside[i]]).numel()) for i in range(b))
-    n_bytes = distinct * k * 4 + b * h * w * (4 + 4 + 1) + hms.numel() * 4
+    n_bytes, n_sector_bytes = _gather_bytes(hms, ix, iy, valid)
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    # the heatmap reconstruction's index maps: an affine map's locality
+    heat_ms = cuda_ms(lambda: warp_gather(hms, *heat), 50, flush)
+    heat_plain_ms = cuda_ms(lambda: warp_gather_plain(hms, *heat), 10, flush)
+    heat_bytes, heat_sector_bytes = _gather_bytes(hms, *heat)
     row = {
         "name": "warp_gather", "route": "cuda",
         "source": "uda_poseestimation_torch/csrc/warp_gather.cu",
         "replaces": "uda_poseestimation_tpu/ops/pallas_warp.py:228",
-        "launches": 0, "max_abs_err": 0.0,
+        "launches": 0, "max_abs_err": max_err,
         "ms": times[True][0], "plain_ms": times[True][1], "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": lib_ms,
+        "bound_by": "bytes", "library_ms": lib_ms, "sector_bytes": n_sector_bytes,
+        "heatmap_ms": heat_ms, "heatmap_bound_ms": heat_bytes / HBM_BYTES_PER_S * 1e3,
     }
-    emit({"phase": "kernel", "name": "warp_gather", "checks_equal": 2, "max_abs_err": 0.0,
-          "shape": [b, k, h, w], "ms_exact_true": times[True][0],
-          "plain_ms_exact_true": times[True][1], "ms_exact_false": times[False][0],
-          "plain_ms_exact_false": times[False][1], "bytes": n_bytes, "bound_ms": bound_ms,
-          "library_ms": lib_ms,
+    emit({"phase": "kernel", "name": "warp_gather", "checks_equal": checks,
+          "max_abs_err": max_err, "shape": [b, k, h, w],
+          "random": {"ms_exact_true": times[True][0], "plain_ms_exact_true": times[True][1],
+                     "ms_exact_false": times[False][0],
+                     "plain_ms_exact_false": times[False][1],
+                     "library_ms": lib_ms, "bytes": n_bytes, "bound_ms": bound_ms,
+                     "sector_bytes": n_sector_bytes,
+                     "sector_bound_ms": n_sector_bytes / HBM_BYTES_PER_S * 1e3},
+          "heatmap": {"ms": heat_ms, "plain_ms": heat_plain_ms,
+                      "bytes": heat_bytes, "bound_ms": row["heatmap_bound_ms"],
+                      "sector_bytes": heat_sector_bytes,
+                      "sector_bound_ms": heat_sector_bytes / HBM_BYTES_PER_S * 1e3},
           "library": "torch.gather on the flattened maps with precomputed in-map "
                      "indices, no mask"})
     return row

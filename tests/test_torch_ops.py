@@ -236,13 +236,15 @@ def test_ema_update_parameters_only():
 
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "uda_poseestimation_tpu", "tools"}
 _PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
-                     (REPO / "uda_poseestimation_torch").rglob("*.py")) + ["chip_smoke.py"]
+                     (REPO / "uda_poseestimation_torch").rglob("*.py")) + [
+                         "chip_smoke.py", "probe_gathers.py"]
 
 
 @pytest.mark.parametrize("rel", _PORT_FILES)
 def test_port_imports_no_jax(rel):
-    """No module of the port, and not chip_smoke.py, imports JAX, Flax, Optax,
-    the JAX package or tools/ (at top level or inside a function)."""
+    """No module of the port, and neither chip_smoke.py nor probe_gathers.py,
+    imports JAX, Flax, Optax, the JAX package or tools/ (at top level or
+    inside a function)."""
     tree = ast.parse((REPO / rel).read_text(), rel)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from uda_poseestimation_torch.ops.warp_gather import warp_gather, warp_gather_plain
+from uda_poseestimation_torch.ops.warp_gather import (
+    vector_path, warp_gather, warp_gather_plain)
 
 
 def _inputs(seed, b=3, k=5, h=16, w=16):
@@ -86,6 +87,67 @@ def test_wrapper_rejects_bad_inputs():
         warp_gather(hms, ix[:, :100], iy, valid)
 
 
+# the card tests' edge shapes: one pixel; ragged H*W and K; the heatmap
+# warp's; 64 KB maps
+_CARD_SHAPES = [(1, 1, 1, 1), (3, 5, 17, 23), (32, 21, 64, 64), (2, 33, 128, 128)]
+
+
+def _draws(shape):
+    """Inputs at ``shape`` whose indices leave the map on each side: for one
+    pixel, a draw beyond each side and one inside."""
+    b, k, h, w = shape
+    hms, ix, iy, valid = _inputs(sum(shape), b, k, h, w)
+    if h * w == 1:
+        return [(hms, np.full((b, 1), x, np.int32), np.full((b, 1), y, np.int32),
+                 np.ones((b, 1), bool)) for x, y in ((-1, 0), (1, 0), (0, -1), (0, 1), (0, 0))]
+    assert (ix < 0).any() and (ix >= w).any() and (iy < 0).any() and (iy >= h).any()
+    return [(hms, ix, iy, valid)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("shape", _CARD_SHAPES[:2], ids=str)
+def test_plain_matches_pallas_interpret_at_edge_shapes(shape, exact):
+    """warp_gather_plain == JAX warp_gather_onehot(interpret=True) at the
+    card tests' small edge shapes (one pixel, ragged H*W and K), indices
+    outside the map on each side."""
+    from uda_poseestimation_tpu.ops.pallas_warp import warp_gather_onehot
+
+    for draw in _draws(shape):
+        want = np.asarray(warp_gather_onehot(*draw, interpret=True, exact=exact))
+        got = warp_gather_plain(*_torch(*draw), exact=exact).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def _vector_args(b, k, h, w, ix_offset=0, valid_offset=0):
+    """CPU tensors of the kernel's shapes; ix and valid shifted by that many
+    elements off their allocations' alignment."""
+    hms = torch.zeros(b, k, h, w)
+    ix = torch.zeros(b * h * w + ix_offset, dtype=torch.int32)[ix_offset:].view(b, h * w)
+    iy = torch.zeros(b, h * w, dtype=torch.int32)
+    valid = torch.ones(b * h * w + valid_offset, dtype=torch.bool)[valid_offset:]
+    return hms, ix, iy, valid.view(b, h * w), torch.empty_like(hms)
+
+
+_VECTOR_CASES = [
+    ((32, 21, 64, 64), 0, 0, True),     # the heatmap warp's shape
+    ((2, 33, 128, 128), 0, 0, True),
+    ((2, 3, 4, 5), 0, 0, True),         # H*W = 20, a multiple of 4
+    ((3, 5, 17, 23), 0, 0, False),      # ragged H*W
+    ((1, 1, 1, 1), 0, 0, False),
+    ((32, 21, 64, 64), 1, 0, False),    # ix 4 bytes off 16
+    ((32, 21, 64, 64), 4, 0, True),     # ix 16 bytes on
+    ((32, 21, 64, 64), 0, 1, False),    # the mask 1 byte off 4
+    ((32, 21, 64, 64), 0, 4, True),
+]
+
+
+@pytest.mark.parametrize("shape,ix_offset,valid_offset,want", _VECTOR_CASES,
+                         ids=[f"{s}-{i}-{v}" for s, i, v, _ in _VECTOR_CASES])
+def test_vector_path(shape, ix_offset, valid_offset, want):
+    """Where the kernel may use its 16-byte index loads and stores."""
+    assert vector_path(*_vector_args(*shape, ix_offset, valid_offset)) is want
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -104,3 +166,29 @@ def test_kernel_matches_plain_on_card(cuda, exact):
     torch.cuda.synchronize()
     assert torch.equal(got, warp_gather_plain(*args, exact=exact))
     assert warp_gather.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _CARD_SHAPES, ids=str)
+def test_kernel_shapes_on_card(cuda, shape):
+    """The kernel equals the plain version bit for bit at the edge shapes
+    (one pixel; ragged H*W and K; the heatmap warp's; 64 KB maps), with
+    indices outside the map on each side, both ``exact``; with ix off
+    16-byte alignment (scalar loads and stores); and a second call equals
+    the first."""
+    for draw in _draws(shape):
+        _check_shape_on_card(cuda, *(t.to(cuda) for t in _torch(*draw)))
+
+
+def _check_shape_on_card(cuda, hms, ix, iy, valid):
+    shifted = torch.empty(ix.numel() + 1, dtype=torch.int32, device=cuda)[1:].view_as(ix)
+    for idx in (ix, shifted.copy_(ix)):
+        for exact in (True, False):
+            before = warp_gather.launches
+            got = warp_gather(hms, idx, iy, valid, exact=exact)
+            again = warp_gather(hms, idx, iy, valid, exact=exact)
+            want = warp_gather_plain(hms, idx, iy, valid, exact=exact)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (idx.data_ptr() % 16, exact)
+            assert torch.equal(again, got)
+            assert warp_gather.launches == before + 2

@@ -10,7 +10,9 @@ exact-chain path the train step runs). The conventions are the same:
   (H-1)/2), evaluated in exactly that order so the float results, and so the
   rounded indices, are bit-equal to the JAX package's;
 - nearest rounds half to even (``torch.round``, as ``jnp.round``);
-  out-of-bounds samples are zero-filled.
+  out-of-bounds samples are zero-filled;
+- a rounded coordinate becomes an int32 as XLA's and CUDA's conversions
+  make it: NaN gives 0, values beyond int32 saturate (``_to_int32``).
 
 Every stage of a warp chain rounds and clips on its own, so three chained
 nearest warps compose into one gather (``compose_nearest_indices``).
@@ -92,6 +94,17 @@ def _coef(m, i, xs):
     return c.reshape(c.shape + (1,) * (xs.dim() - c.dim()))
 
 
+def _to_int32(v):
+    """float32 -> int32 with NaN -> 0 and out-of-range values saturated, as
+    XLA and CUDA convert. The CPU's own conversion gives INT_MIN for all of
+    these, so there the values are mapped first; the top goes to 2^31 - 128,
+    the largest float32 below 2^31, which lies outside every map as INT_MAX
+    does."""
+    if v.device.type == "cpu":
+        v = v.clamp(-2.0 ** 31, 2.0 ** 31 - 128).nan_to_num(0.0)
+    return v.to(torch.int32)
+
+
 def compose_nearest_indices(coeff_list: Sequence[torch.Tensor], xs, ys, valid,
                             h: int, w: int):
     """Compose NEAREST-warp index maps backwards through ``coeff_list``.
@@ -107,8 +120,8 @@ def compose_nearest_indices(coeff_list: Sequence[torch.Tensor], xs, ys, valid,
     for m in reversed(list(coeff_list)):
         x_in = _coef(m, 0, xs) * xs + _coef(m, 1, xs) * ys + _coef(m, 2, xs) + half_w
         y_in = _coef(m, 3, xs) * xs + _coef(m, 4, xs) * ys + _coef(m, 5, xs) + half_h
-        ix = torch.round(x_in).to(torch.int32)
-        iy = torch.round(y_in).to(torch.int32)
+        ix = _to_int32(torch.round(x_in))
+        iy = _to_int32(torch.round(y_in))
         valid = valid & (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
         xs = ix.clamp(0, w - 1).to(torch.float32) - half_w
         ys = iy.clamp(0, h - 1).to(torch.float32) - half_h

@@ -16,10 +16,13 @@ tensor. The plain version is the tests' CPU path and the kernel's oracle on
 the card; it is never a fallback for a CUDA tensor.
 
 On an H100 the kernel is bound by memory: at the main path's (32, 3, 256,
-256) f32 it reads at most 25.2 MB and writes 25.2 MB (~15 us at 3.35 TB/s);
-its index math is negligible. One thread computes one pixel's index chain
-once and copies its C channels, so writes are coalesced and reads are
-gathers with an affine map's locality.
+256) f32 it reads at most 25.2 MB and writes 25.2 MB (~15 us at 3.35 TB/s).
+Its index math is not negligible: ~100 f32 operations a pixel hold it
+more than its bytes do, so they are kept off the conversion pipe, where
+float<->int conversions run at a quarter of the f32 rate. A block covers a
+32x32 output tile, each warp gathers 8x4 pixel patches (an affine map's
+locality), and the tile is staged in shared memory and written with
+16-byte stores in the input's layout.
 """
 
 from __future__ import annotations
@@ -100,10 +103,7 @@ def _launcher():
         from .._build import load
 
         fn = load("occlusion_warp").occlusion_warp_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launcher.fn = fn
     return fn
@@ -133,13 +133,17 @@ def occlusion_warp(imgs, coeffs, rect, exact: bool = True):
     b, c, h, w = imgs.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid (65535)")
+    if c * h * w >= 2 ** 31:
+        raise ValueError(f"an image of {c * h * w} elements exceeds the kernel's "
+                         f"32-bit offsets")
     out = torch.empty_like(imgs)
     if b == 0 or c == 0:
         return out
-    stride_b, stride_c, _, stride_p = imgs.stride()
+    # a (B, 1, H, W) or 1x1 image is contiguous in both formats: NCHW then
+    channels_last = not imgs.is_contiguous()
     err = _launcher()(
         imgs.data_ptr(), coeffs.data_ptr(), rect.data_ptr(), out.data_ptr(),
-        b, c, w.bit_length() - 1, stride_b, stride_c, stride_p, int(bool(exact)),
+        b, c, w.bit_length() - 1, int(channels_last), int(bool(exact)),
         torch.cuda.current_stream(imgs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"occlusion_warp kernel launch failed: cudaError {err}")

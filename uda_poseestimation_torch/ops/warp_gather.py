@@ -24,6 +24,17 @@ import ctypes
 import torch
 
 
+def vector_path(hms, ix, iy, valid, out) -> bool:
+    """Whether the kernel may read each 4 pixels' indices and mask with one
+    vector load and write each channel's 4 outputs with one 16-byte store:
+    H*W a multiple of 4, ``hms``, ``ix``, ``iy`` and ``out`` 16-byte aligned
+    and ``valid`` 4-byte aligned. Else it loads and stores element by
+    element."""
+    h, w = hms.shape[-2:]
+    return (h * w % 4 == 0 and valid.data_ptr() % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (hms, ix, iy, out)))
+
+
 def _check(hms, ix, iy, valid):
     if hms.dim() != 4 or hms.dtype != torch.float32:
         raise ValueError(f"hms must be (B, K, H, W) float32, got "
@@ -59,7 +70,7 @@ def _launcher():
         from .._build import load
 
         fn = load("warp_gather").warp_gather_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launcher.fn = fn
     return fn
@@ -89,8 +100,9 @@ def warp_gather(hms, ix, iy, valid, exact: bool = True):
     out = torch.empty_like(hms)
     if out.numel() == 0:
         return out
+    vec = vector_path(hms, ix, iy, valid, out)
     err = _launcher()(hms.data_ptr(), ix.data_ptr(), iy.data_ptr(), valid.data_ptr(),
-                      out.data_ptr(), b, k, h, w, int(bool(exact)),
+                      out.data_ptr(), b, k, h, w, int(vec), int(bool(exact)),
                       torch.cuda.current_stream(hms.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp_gather kernel launch failed: cudaError {err}")
