@@ -45,27 +45,60 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             pretrain step, 0 for eval), all of its tma variant, and
             occlusion_warp once per adapt step; ms/step, img/s and peak
             memory beside phase main's.
+7. trainer_engine  the port's epoch loops (engine.py) on the card with the
+            models and flags of phase main, fed by in-memory RHD-shaped
+            batches (bench.py's recipe, page-locked): a pretrain epoch (3
+            iterations, s2t always on), an adapt epoch (3 iterations, both
+            gates always on), a validation over two batches, the last
+            partial, and a 10-iteration adapt epoch for the loop's steady
+            time, each counted on its own (occlusion_warp once per adapt
+            iteration, no kernel elsewhere); the loops' time per iteration
+            (between two step calls) and host batch time (first fetch to
+            step call) beside phase main's ms/step, and the peak memory;
+            then save_checkpoint -> load_checkpoint -> restore_train_state
+            into a fresh state, held bit-equal (parameters, BatchNorm
+            buffers, Adam state), and one more adapt step from each state
+            with equal losses.
+8. trainer_cli  when Pillow imports: the port's train_human.main in this
+            process on a fake RHD tree (96 training and 16 evaluation frames
+            at 320², make_rhd's recipe) with random style weights, at
+            pose_resnet101 b=32, 3 iterations an epoch, -j min(8, cpus): a
+            pretrain epoch, an adapt epoch, the adapt epoch under
+            UDA_BN_FUSE=1 (630 matmul_stats launches, all tma), --phase
+            test --resume on phase 7's checkpoint, and a 40-iteration adapt
+            epoch on the tree lengthened to 40 batches (hard links), long
+            enough to drain the workers' prefetched batches; the
+            logs' epoch and Source/Target lines finite, the launches of each
+            run, the Time and Data per iteration that it prints, and no
+            worker process left. Without
+            Pillow it prints {"phase": "trainer_cli", "ran": false, ...}.
 
-Then the kernel table ({"kernels": [...]}), the nvidia-smi line, and the
+Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
+kernel's launches on every path), the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
 of the repository beside it, the script fails before printing any result.
 
-``--profile DIR`` also traces one more adapt step of each main path with
-torch.profiler and writes the per-kernel device-time tables to
-DIR/profile_adapt_step.json and DIR/profile_adapt_step_bn_fuse.json.
+``--profile DIR`` also traces one more adapt step of each main path and one
+more adapt epoch of phase trainer_engine with torch.profiler and writes the
+per-kernel device-time tables to DIR/profile_adapt_step.json,
+DIR/profile_adapt_step_bn_fuse.json and DIR/profile_trainer_adapt_epoch.json.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import gc
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -82,6 +115,8 @@ BF16_FLOPS = 989e12
 WARP_FLOPS_PER_PIXEL = 104
 
 MAIN_B, MAIN_K, MAIN_KV = 32, 21, 1
+# the trainer phases' model and sizes (phase main's)
+TRAINER_ARCH, MAIN_IMAGE, MAIN_HEATMAP = "pose_resnet101", 256, 64
 # ~1 ms at the H100's ~2 GHz SM clock (see cuda_ms)
 SLEEP_CYCLES = 2_000_000
 
@@ -916,12 +951,11 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
 
 
 def profile_adapt_step(adapt_step, out_dir, step_ms, file_name):
-    """Device time by kernel and kernel group over one adapt step
-    (torch.profiler), into ``out_dir/file_name.json``; the idle share is taken
-    against ``step_ms``, the unprofiled step time, since the profiler slows
-    the host."""
-    import re
-
+    """Device time by kernel and kernel group over one call of
+    ``adapt_step`` (an adapt step, or an epoch of the adapt loop;
+    torch.profiler), into ``out_dir/file_name.json``; the idle share is taken
+    against ``step_ms``, the unprofiled time of the same work, since the
+    profiler slows the host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -956,6 +990,456 @@ def profile_adapt_step(adapt_step, out_dir, step_ms, file_name):
     with open(os.path.join(out_dir, file_name + ".json"), "w") as f:
         json.dump(dict(summary, kernels=rows), f, indent=1)
     emit(dict({"phase": "profile", "file": file_name}, **summary, top=rows[:8]))
+
+
+def clocked(step, stamps):
+    """``step`` with the host time of each call appended to ``stamps``."""
+    def call(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        return step(*args, **kwargs)
+    return call
+
+
+def step_times(step_stamps, fetch_stamps):
+    """A training loop's seconds per iteration from its step calls: the
+    period between two calls (the one-deep pipeline enqueues step i+1 once
+    step i-1 is read back, so in a steady loop this is the iteration's time)
+    and the host's batch time, from the iteration's first fetch to its step
+    call (the fetch, the batch's assembly and the gate draws). Medians and
+    each value."""
+    periods = [b - a for a, b in zip(step_stamps, step_stamps[1:])]
+    batch = [s - f for s, f in zip(step_stamps, fetch_stamps)]
+    return {"period_s_median": statistics.median(periods), "period_s_each": periods,
+            "batch_s_median": statistics.median(batch), "batch_s_each": batch}
+
+
+_METER = re.compile(r"^Epoch: \[\d+\]\[ *\d+/\d+\]\tTime +([\d.]+) \([^)]*\)"
+                    r"\tData +([\d.]+) ")
+
+
+def printed_times(text):
+    """Each iteration's Time and Data in seconds, as a training loop of the
+    CLI prints them with ``-p 1`` (2 and 1 decimals). Time i runs from step
+    i-1's readback to step i's, so the first holds the start-up; Data 0 is
+    the wait for the first batches."""
+    rows = [tuple(map(float, m.groups())) for m in map(_METER.match, text.splitlines()) if m]
+    if not rows:
+        return {}
+    times, datas = zip(*rows)
+    return {"time_s_median": statistics.median(times), "time_s_each": list(times),
+            "first_batch_s": datas[0], "data_s_each": list(datas)}
+
+
+class SyntheticRHD:
+    """An endless in-memory stand-in for the RHD training loaders: the
+    collated source 4-tuples (``RenderedHandPose``) or target 8-tuples with
+    k teacher views (``RenderedHandPose_mt``), from bench.py's synthetic
+    recipe (``synthetic_batch``), page-locked as the port's loaders give
+    them on a CUDA run. Two distinct batches are made once and cycled, so a
+    fetch costs the loop nothing."""
+
+    def __init__(self, target, seed):
+        import numpy as np
+        import torch
+
+        rng = np.random.RandomState(seed)
+        kv = MAIN_KV
+        self.items, self.stamps = [], []
+        for _ in range(2):
+            b = {k: torch.from_numpy(v).pin_memory()
+                 for k, v in synthetic_batch(rng, MAIN_B, kv, MAIN_IMAGE, MAIN_HEATMAP,
+                                             MAIN_K).items()}
+            kp = torch.from_numpy(rng.uniform(20, 230, (MAIN_B, MAIN_K, 2)))
+            if target:
+                self.items.append((
+                    b["image_t_stu"], b["target_s"], b["weight_s"],
+                    {"aug_param_stu": b["aug_param_stu"], "keypoint2d_ori": kp},
+                    list(b["images_t_tea"].unbind(0)), [b["target_s"]] * kv,
+                    [b["weight_s"]] * kv,
+                    [{"aug_param_tea": a} for a in b["aug_params_tea"].unbind(0)]))
+            else:
+                self.items.append((b["image_s"], b["target_s"], b["weight_s"],
+                                   {"keypoint2d": kp}))
+
+    def __next__(self):
+        self.stamps.append(time.perf_counter())
+        return self.items[(len(self.stamps) - 1) % len(self.items)]
+
+
+def synthetic_val_loader(n, batch_size):
+    """A loader of ``n`` evaluation samples (bench.py's recipe) whose last
+    batch is partial, over a dataset with the RHD sets' ``num_keypoints`` and
+    their 'all' group: the stand-in for the port's RenderedHandPose test
+    split, which needs Pillow."""
+    import numpy as np
+    import torch
+
+    data = synthetic_batch(np.random.RandomState(3), n, 1, MAIN_IMAGE, MAIN_HEATMAP, MAIN_K)
+
+    class ValSet(torch.utils.data.Dataset):
+        num_keypoints = MAIN_K
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return (data["image_s"][i], data["target_s"][i], data["weight_s"][i],
+                    {"index": i})
+
+        @staticmethod
+        def group_accuracy(accuracies):
+            return {"all": sum(accuracies) / len(accuracies)}
+
+    return torch.utils.data.DataLoader(ValSet(), batch_size=batch_size, pin_memory=True)
+
+
+def _reset_counts():
+    from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
+
+    for fn in _counters().values():
+        fn.launches = 0
+    matmul_stats.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _finite_lines(text, prefixes):
+    """The lines of ``text`` that start with one of ``prefixes``; raises
+    unless there is one and every number in them is finite."""
+    import math
+
+    lines = [ln for ln in text.splitlines() if ln.startswith(tuple(prefixes))]
+    values = [float(v) for ln in lines for v in re.findall(r"[-+]?(?:\d+\.\d*|nan|inf)"
+                                                            r"(?:e[-+]\d+)?", ln)]
+    if not lines or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"no finite {prefixes} lines: {lines[:6]}")
+    return lines
+
+
+def _same_state(a, b):
+    """Whether two UDAStates hold equal student and teacher parameters and
+    buffers and an equal optimizer state, bit for bit."""
+    import torch
+
+    for ma, mb in ((a.student, b.student), (a.teacher, b.teacher)):
+        sa, sb = ma.state_dict(), mb.state_dict()
+        if list(sa) != list(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    return (oa["param_groups"] == ob["param_groups"] and oa["state"].keys() == ob["state"].keys()
+            and all(torch.equal(torch.as_tensor(v), torch.as_tensor(ob["state"][i][k]))
+                    for i, entry in oa["state"].items() for k, v in entry.items()))
+
+
+def phase_trainer_engine(device, work_dir, main_run, profile_dir=None):
+    """The port's epoch loops on the card at full width (the models, batch
+    and flags of phase main), fed by in-memory RHD-shaped batches: pretrain
+    (3 iterations, s2t gate always on), adapt (3 iterations, both gates
+    always on), validation over two batches (the last partial), adapt again
+    for 10 iterations (the steady time per iteration); then a
+    checkpoint round trip into a fresh state, held bit-equal, and one more
+    adapt step from each state with equal losses. Each loop is counted on
+    its own: occlusion_warp once per adapt iteration, no kernel in pretrain
+    or validation. With ``profile_dir``, one more adapt epoch is traced for
+    its device busy time and idle share. Returns the launches of each loop
+    and the checkpoint's path."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch import models
+    from uda_poseestimation_torch.engine import (make_adapt_batch, run_adapt_epoch,
+                                                 run_pretrain_epoch, run_validate)
+    from uda_poseestimation_torch.parallel import (
+        StepConfig, create_state, make_adapt_step, make_eval_step, make_pretrain_step)
+    from uda_poseestimation_torch.utils.checkpoint import (load_checkpoint,
+                                                           restore_train_state,
+                                                           save_checkpoint)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = StepConfig(image_size=MAIN_IMAGE, heatmap_size=MAIN_HEATMAP, k=MAIN_KV,
+                     gather_exact=False, style_io_dtype="bfloat16")
+
+    def new_state(seed):
+        model = getattr(models, TRAINER_ARCH)(num_keypoints=MAIN_K, dtype=torch.bfloat16)
+        return create_state(model, cfg, seed=seed, device=device)
+
+    state = new_state(0)
+    style = models.StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)
+    calls = []  # host time of each training step's call
+    pretrain = clocked(make_pretrain_step(cfg, style_model=style, device=device), calls)
+    adapt = clocked(make_adapt_step(cfg, style_model=style, device=device), calls)
+    evaluate = make_eval_step(device=device)
+    source, target = SyntheticRHD(False, 10), SyntheticRHD(True, 11)
+    val_loader = synthetic_val_loader(MAIN_B + MAIN_B // 2, MAIN_B)
+    args = types.SimpleNamespace(iters_per_epoch=3, print_freq=1, val_print_freq=1,
+                                 image_size=MAIN_IMAGE, heatmap_size=MAIN_HEATMAP,
+                                 s2t_freq=1.0,
+                                 s2t_alpha=(0.0, 1.0), t2s_freq=1.0, t2s_alpha=(0.0, 1.0))
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # a longer adapt epoch for the loop's steady time per iteration
+    timed_args = types.SimpleNamespace(**dict(vars(args), iters_per_epoch=10))
+    loops, launches, printed = {}, {}, io.StringIO()
+    for name, run in (
+            ("pretrain", lambda: run_pretrain_epoch(state, pretrain, source, target, 0, 1e-4,
+                                                    args, style_enabled=True)),
+            ("adapt", lambda: run_adapt_epoch(state, adapt, source, target, 1, 1e-4, args,
+                                              style_enabled=True)),
+            ("validate", lambda: run_validate(evaluate, state.teacher, val_loader, args)),
+            ("adapt_10", lambda: run_adapt_epoch(state, adapt, source, target, 2, 1e-4,
+                                                 timed_args, style_enabled=True))):
+        del calls[:], source.stamps[:]
+        with contextlib.redirect_stdout(printed):
+            _reset_counts()
+            w0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            launches[name] = _read_counts()
+        loops[name] = dict(step_times(calls, source.stamps) if calls else {},
+                           wall_s=wall, launches=launches[name])
+        if name == "validate":
+            loops[name]["accuracy"] = out = {k: float(v) for k, v in out.items()}
+            if not all(np.isfinite(list(out.values()))):
+                raise AssertionError(f"validation accuracy {out}")
+    _finite_lines(printed.getvalue(), ("Epoch: [0][", "Epoch: [1][", "Test: ["))
+    want = {"pretrain": dict.fromkeys(launches["pretrain"], 0),
+            "adapt": dict(dict.fromkeys(launches["adapt"], 0),
+                          occlusion_warp=args.iters_per_epoch),
+            "validate": dict.fromkeys(launches["validate"], 0),
+            "adapt_10": dict(dict.fromkeys(launches["adapt"], 0), occlusion_warp=10)}
+    if launches != want:
+        raise AssertionError(f"launches by loop {launches}, the loops need {want}")
+    # s2t fired in every pretrain iteration
+    if len(target.stamps) != 2 * args.iters_per_epoch + timed_args.iters_per_epoch:
+        raise AssertionError(f"target batches fetched {len(target.stamps)}")
+    loops_peak = torch.cuda.max_memory_allocated(device)
+    if profile_dir:
+        def quiet_epoch():
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_adapt_epoch(state, adapt, source, target, 3, 1e-4, timed_args,
+                                style_enabled=True)
+
+        profile_adapt_step(quiet_epoch, profile_dir, loops["adapt_10"]["wall_s"] * 1e3,
+                           "profile_trainer_adapt_epoch")
+
+    # checkpoint round trip into a fresh state, then one adapt step from each
+    path = os.path.join(work_dir, "engine", "best.pth")
+    c0 = time.perf_counter()
+    save_checkpoint(path, {"student": state.student, "teacher": state.teacher,
+                           "stu_optimizer": state.optimizer,
+                           "lr_scheduler": {"epoch": 1, "milestones": [45, 60], "gamma": 0.1},
+                           "epoch": 1, "args": vars(args)})
+    fresh = new_state(5)
+    if _same_state(state, fresh):
+        raise AssertionError("a fresh state already equals the trained one")
+
+    def incompatible(line):
+        raise AssertionError(line)
+
+    restore_train_state(fresh, load_checkpoint(path), load_optimizer=True, log=incompatible)
+    round_trip_s = time.perf_counter() - c0
+    if not _same_state(state, fresh):
+        raise AssertionError("the restored state differs from the saved one")
+    batch = make_adapt_batch(next(source), next(target))
+    losses = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for st in (state, fresh):
+            gen = torch.Generator(device=device).manual_seed(7)
+            _, metrics, _ = adapt(st, batch, 1e-4, True, 0.5, True, 0.5, generator=gen)
+            losses.append([float(metrics[k]) for k in ("loss_all", "loss_s", "loss_c")])
+    if losses[0] != losses[1] or not all(np.isfinite(losses[0])):
+        raise AssertionError(f"one more adapt step: losses {losses[0]} vs {losses[1]}")
+    del fresh
+
+    adapt_ms = loops["adapt_10"]["period_s_median"] * 1e3
+    emit({"phase": "trainer_engine", "model": TRAINER_ARCH, "batch": MAIN_B,
+          "image": MAIN_IMAGE, "heatmap": MAIN_HEATMAP, "k": MAIN_KV, "style": "s2t+t2s, gates always on",
+          "setup_s": setup_s, "loops": loops,
+          "main_ms_per_step": main_run["ms_per_step"],
+          "adapt_10_period_ms_minus_main": adapt_ms - main_run["ms_per_step"],
+          "checkpoint": {"bytes": os.path.getsize(path), "round_trip_s": round_trip_s,
+                         "state_bit_equal": True, "next_step_losses": losses[0],
+                         "next_step_losses_equal": True},
+          "max_memory_allocated_loops": loops_peak,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+          "seconds": time.perf_counter() - t0})
+    return launches, path
+
+
+def write_fake_rhd(root, n_train=96, n_eval=16, size=320):
+    """A fake RHD tree in the layout and recipe of
+    ``tools/make_fixtures.py::make_rhd`` (a copy: this script imports nothing
+    of ``tools/``): 21 Gaussian blobs per frame over a noisy background, the
+    left hand's keypoints visible, the right hand's far away and invisible."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    base = os.path.join(root, "RHD_published_v2")
+    for set_name, n, seed in (("training", n_train, 0), ("evaluation", n_eval, 1)):
+        color = os.path.join(base, set_name, "color")
+        os.makedirs(color, exist_ok=True)
+        os.makedirs(os.path.join(base, set_name, "mask"), exist_ok=True)
+        rng = np.random.RandomState(seed)
+        anno = {}
+        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+        for i in range(n):
+            kp = rng.uniform(60, size - 60, (21, 2)).astype(np.float32)
+            img = rng.rand(size, size, 3).astype(np.float32) * 0.15
+            for j in range(21):
+                img[..., j % 3] += np.exp(-((xx - kp[j, 0]) ** 2 + (yy - kp[j, 1]) ** 2)
+                                          / (2 * 6.0 ** 2))
+            Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(color, "%.5d.png" % i))
+            uv = np.zeros((42, 3))
+            uv[:21, :2], uv[:21, 2], uv[21:, :2] = kp, 1, 5.0
+            anno[i] = {"uv_vis": uv, "xyz": rng.rand(42, 3) + 1.0,
+                       "K": np.array([[320.0, 0, 160], [0, 320.0, 160], [0, 0, 1]])}
+        with open(os.path.join(base, set_name, "anno_%s.pickle" % set_name), "wb") as f:
+            pickle.dump(anno, f)
+
+
+def lengthen_fake_rhd(root, n):
+    """Make the training set of a fake RHD tree ``n`` frames long: new
+    names linked to its images and their annotations repeated, so that one
+    pass holds n // 32 batches at the same decode and augmentation cost and
+    a long run never waits for the loader's next pass."""
+    import pickle
+
+    base = os.path.join(root, "RHD_published_v2", "training")
+    path = os.path.join(base, "anno_training.pickle")
+    with open(path, "rb") as f:
+        anno = pickle.load(f)
+    have = len(anno)
+    for i in range(have, n):
+        os.link(os.path.join(base, "color", "%.5d.png" % (i % have)),
+                os.path.join(base, "color", "%.5d.png" % i))
+        anno[i] = anno[i % have]
+    with open(path, "wb") as f:
+        pickle.dump(anno, f)
+
+
+def phase_trainer_cli(device, work_dir, checkpoint):
+    """``train_human.main`` of the port in this process, at full width on a
+    fake RHD tree with random style weights (the cwd is ``work_dir`` for the
+    phase): a pretrain epoch, an adapt epoch, the same under UDA_BN_FUSE=1,
+    ``--phase test --resume`` on ``checkpoint`` (written by the port's
+    save_checkpoint), and a 40-iteration adapt epoch on the tree
+    lengthened to 40 batches a pass (the data pipeline's steady cost). Each
+    run is counted on its own. Needs Pillow; returns
+    the launches of each run, or None when Pillow is not installed."""
+    import importlib.util
+    import multiprocessing
+
+    import torch
+
+    if importlib.util.find_spec("PIL") is None:
+        emit({"phase": "trainer_cli", "ran": False, "reason": "Pillow is not installed"})
+        return None
+    from uda_poseestimation_torch import train_human
+    from uda_poseestimation_torch.models import StyleNet, resnet
+    from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
+
+    t0 = time.perf_counter()
+    root = os.path.join(work_dir, "rhd")
+    write_fake_rhd(root)
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    os.makedirs(os.path.join(work_dir, "saved_models"))
+    torch.save(style.encoder.state_dict(),
+               os.path.join(work_dir, "saved_models", "vgg_normalised.pth"))
+    torch.save(style.decoder.state_dict(),
+               os.path.join(work_dir, "saved_models", "decoder_rand.pth"))
+    fixture_s = time.perf_counter() - t0
+    workers = min(8, os.cpu_count() or 1)
+    common = [root, root, "-s", "RenderedHandPose", "-t", "RenderedHandPose",
+              "--target-train", "RenderedHandPose_mt", "-a", TRAINER_ARCH, "-b", str(MAIN_B),
+              "--test-batch", str(MAIN_B), "--image-size", str(MAIN_IMAGE),
+              "--heatmap-size", str(MAIN_HEATMAP), "--k", str(MAIN_KV),
+              "--seed", "0", "-i", "3", "-p", "1",
+              "--decoder-name", "saved_models/decoder_rand.pth", "-j", str(workers),
+              "--device", str(device)]
+    # the fused GEMM's calls per train-mode forward (70 for pose_resnet101):
+    # k teacher and 2 student forwards per adapt iteration, 3 iterations
+    per_forward = sum(resnet.fused_gemm_shapes(
+        getattr(resnet, TRAINER_ARCH[len("pose_"):])(fuse_bn=True), MAIN_B,
+        MAIN_IMAGE).values())
+    none = dict.fromkeys(_counters(), 0)
+    runs = [("pretrain", ["--pretrain-epoch", "1", "--epochs", "1"], None, none),
+            ("adapt", ["--pretrain-epoch", "-1", "--epochs", "1"], None,
+             dict(none, occlusion_warp=3)),
+            ("adapt_bn_fuse", ["--pretrain-epoch", "-1", "--epochs", "1"], "1",
+             dict(none, occlusion_warp=3, matmul_stats=3 * (MAIN_KV + 2) * per_forward)),
+            ("test", ["--phase", "test", "--resume", checkpoint], None, none),
+            # long enough to drain the workers' prefetched batches (2 each),
+            # on a tree of 40 batches a pass (the loader's next pass would
+            # start only when the last one ends, a stall of one batch's
+            # latency every 3 iterations on the 96-frame tree)
+            ("adapt_40", ["--pretrain-epoch", "-1", "--epochs", "1", "-i", "40"], None,
+             dict(none, occlusion_warp=40))]
+    results, launches = {}, {}
+    cwd, fuse_env = os.getcwd(), os.environ.get("UDA_BN_FUSE")
+    os.chdir(work_dir)
+    try:
+        for name, extra, fuse, want in runs:
+            if name == "adapt_40":
+                lengthen_fake_rhd(root, 40 * MAIN_B)
+            if fuse is None:
+                os.environ.pop("UDA_BN_FUSE", None)
+            else:
+                os.environ["UDA_BN_FUSE"] = fuse
+            printed = io.StringIO()
+            args = train_human.build_parser().parse_args(common + extra + ["--log",
+                                                                            f"logs/{name}"])
+            with contextlib.redirect_stdout(printed):
+                _reset_counts()
+                r0 = time.perf_counter()
+                train_human.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - r0
+                launches[name] = _read_counts()
+                by_variant = dict(matmul_stats.launches_by_variant)
+            gc.collect()
+            if multiprocessing.active_children():
+                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            if launches[name] != want:
+                raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
+            if by_variant != dict(dict.fromkeys(VARIANTS, 0), tma=want["matmul_stats"]):
+                raise AssertionError(f"run {name}: matmul_stats by variant {by_variant}")
+            phase = "test" if name == "test" else "train"
+            log_dir = f"logs/{name}_{TRAINER_ARCH}"
+            logs = [f for f in os.listdir(log_dir) if f.startswith(phase + "-")]
+            with open(os.path.join(log_dir, logs[0])) as f:
+                text = f.read()
+            lines = _finite_lines(text, ("Source: ",) if name == "test" else ("Epoch: 0 ",))
+            if name != "test":
+                _finite_lines(printed.getvalue(), ("Epoch: [0][",))
+            results[name] = {"wall_s": wall, "launches": launches[name],
+                             "matmul_stats_by_variant": by_variant, "log": lines,
+                             **printed_times(printed.getvalue())}
+    finally:
+        os.chdir(cwd)
+        if fuse_env is None:
+            os.environ.pop("UDA_BN_FUSE", None)
+        else:
+            os.environ["UDA_BN_FUSE"] = fuse_env
+    emit({"phase": "trainer_cli", "ran": True, "workers": workers,
+          "cpu_count": os.cpu_count(),
+          "fixture": {"train": 96, "eval": 16, "size": 320, "train_adapt_40": 40 * MAIN_B},
+          "fixture_s": fixture_s, "runs": results, "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -996,22 +1480,46 @@ def main(argv=None) -> int:
 
     from uda_poseestimation_torch.models.resnet import fused_gemm_shapes, resnet101
 
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *fn_args, **fn_kwargs):
+        t = time.perf_counter()
+        out = fn(*fn_args, **fn_kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return out
+
     shapes = fused_gemm_shapes(resnet101(fuse_bn=True), MAIN_B, 256)
-    rows = {"occlusion_warp": phase_kernel_occlusion_warp(device),
-            "matmul_stats": phase_kernel_matmul_stats(device, shapes),
-            "warp_gather": phase_kernel_warp_gather(device)}
-    phase_parity(device)
-    phase_parity(device, fuse_bn=True)
-    main_run = phase_main(device, args.profile)
+    rows = {"occlusion_warp": timed("kernel", phase_kernel_occlusion_warp, device),
+            "matmul_stats": timed("kernel", phase_kernel_matmul_stats, device, shapes),
+            "warp_gather": timed("kernel", phase_kernel_warp_gather, device)}
+    timed("parity", phase_parity, device)
+    timed("parity", phase_parity, device, fuse_bn=True)
+    main_run = timed("main", phase_main, device, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    fused_run = phase_main(device, args.profile, fuse_bn=True, unfused=main_run)
+    fused_run = timed("main_bn_fuse", phase_main, device, args.profile, fuse_bn=True,
+                      unfused=main_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the trainer phases' files (fixture, weights, logs, checkpoints) live in a
+    # directory of the checkout that is removed afterwards
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as work_dir:
+        engine_launches, checkpoint = timed("trainer_engine", phase_trainer_engine, device,
+                                            work_dir, main_run, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_launches = timed("trainer_cli", phase_trainer_cli, device, work_dir, checkpoint)
+    emit({"phase_seconds": seconds})
     # each row's launches are those of the path it lies on (warp_gather: none),
-    # in all and in the last measured adapt step
+    # in all and in the last measured adapt step; then every path's own count
+    by_path = {"main": main_run["launches"], "main_bn_fuse": fused_run["launches"],
+               **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
+               **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()}}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):
         rows[name]["launches"] = run["launches"][name]
         rows[name]["launches_per_adapt_step"] = run["launches_per_adapt_step"][name]
+        rows[name]["launches_by_path"] = {path: n[name] for path, n in by_path.items()}
 
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)

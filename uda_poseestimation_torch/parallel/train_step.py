@@ -148,7 +148,11 @@ def _nhwc(x):
 
 
 def _to_device(batch: Mapping, dev: torch.device) -> dict:
-    return {k: v.to(dev) if isinstance(v, torch.Tensor)
+    """The batch on ``dev``. Tensors are copied with ``non_blocking``: from
+    page-locked memory (the loader's batches on a CUDA run) the copy is
+    queued on the stream and the host goes on; from pageable memory it is a
+    plain copy."""
+    return {k: v.to(dev, non_blocking=True) if isinstance(v, torch.Tensor)
             else torch.tensor(v, device=dev)
             for k, v in batch.items() if v is not None}
 
@@ -401,7 +405,8 @@ def make_eval_step(device: DeviceLike = None):
 
     @torch.no_grad()
     def eval_fn(model: nn.Module, x, label, weight):
-        x, label, weight = (torch.as_tensor(t, device=dev) for t in (x, label, weight))
+        x, label, weight = _to_device({"x": x, "label": label, "weight": weight},
+                                      dev).values()
         model.eval()
         y = model(_nchw(x))
         loss = joints_mse_loss(y, label, weight[..., 0])

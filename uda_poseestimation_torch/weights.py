@@ -10,6 +10,9 @@ is what the port's modules use:
   ``Deconv`` convolves the 2x-dilated input with the spatially flipped
   kernel, which is what ``ConvTranspose2d`` computes with the plain one;
 - BatchNorm scale/bias -> weight/bias, mean/var -> running_mean/var.
+
+``load_style_net_files`` reads the style network from the reference's torch
+files instead (the trainers' ``--decoder-name``).
 """
 
 from __future__ import annotations
@@ -135,4 +138,25 @@ def load_style_net(style_net: nn.Module, params: Mapping) -> nn.Module:
     """Load Flax StyleNet params (``{"encoder": ..., "decoder": ...}``)."""
     _load(style_net.encoder, vgg_state_dict(params["encoder"]))
     _load(style_net.decoder, decoder_state_dict(params["decoder"]))
+    return style_net
+
+
+def load_style_net_files(style_net: nn.Module, vgg_path: str, decoder_path: str) -> nn.Module:
+    """Load ``vgg_normalised.pth`` and a decoder ``.pth`` into ``style_net``.
+
+    Both are torch state dicts with the reference's Sequential-index keys,
+    which are the port's ``VGGEncoder`` and ``Decoder`` keys, so they load
+    as they are (the JAX package converts them, in
+    ``tools/port_torch_weights.py::load_style_net_params``). The vgg file
+    may hold the whole vgg_normalised: the encoder takes the entries of its
+    first 31 layers. Decoders saved by the JAX package's AdaIN pretraining
+    in Flax's msgpack format are not read here.
+    """
+    for module, path in ((style_net.encoder, vgg_path), (style_net.decoder, decoder_path)):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        own = module.state_dict()
+        missing = [k for k in own if k not in sd]
+        if missing:
+            raise KeyError(f"{path}: no value for {missing[:5]} ({len(missing)} entries)")
+        module.load_state_dict({k: sd[k] for k in own})
     return style_net
