@@ -72,6 +72,18 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             run, the Time and Data per iteration that it prints, and no
             worker process left. Without
             Pillow it prints {"phase": "trainer_cli", "ran": false, ...}.
+9. trainer_pairs  the four train_human.py lines of ``script`` (r2h, s2h,
+            s2l, f2r) with their own flags through train_human.main in this
+            process at the same width, -j as in trainer_cli, one epoch of 3
+            iterations: an adapt epoch each and a pretrain epoch for s2h,
+            on fake trees in each dataset's layout at its frame size that
+            the phase writes (FAKE_TREES); occlusion_warp 3 times an adapt
+            run and never in pretraining, finite epoch lines, no worker
+            left; one line per run: wall time, dataset construction time,
+            first-batch wait, the median Time and Data of iterations 1-2,
+            each validation's seconds and items, and the parent's RSS after
+            construction and at the end (/proc/self/statm, and getrusage
+            for the peak). Needs Pillow and SciPy.
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -1277,6 +1289,19 @@ def phase_trainer_engine(device, work_dir, main_run, profile_dir=None):
     return launches, path
 
 
+def blob_frame(rng, h, w, kp):
+    """An h x w uint8 RGB frame: a Gaussian blob (sigma 6 px) at each
+    keypoint over a dim noisy background (make_rhd's recipe)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = rng.rand(h, w, 3).astype(np.float32) * 0.15
+    for j in range(len(kp)):
+        img[..., j % 3] += np.exp(-((xx - kp[j, 0]) ** 2 + (yy - kp[j, 1]) ** 2)
+                                  / (2 * 6.0 ** 2))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
 def write_fake_rhd(root, n_train=96, n_eval=16, size=320):
     """A fake RHD tree in the layout and recipe of
     ``tools/make_fixtures.py::make_rhd`` (a copy: this script imports nothing
@@ -1294,14 +1319,9 @@ def write_fake_rhd(root, n_train=96, n_eval=16, size=320):
         os.makedirs(os.path.join(base, set_name, "mask"), exist_ok=True)
         rng = np.random.RandomState(seed)
         anno = {}
-        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
         for i in range(n):
             kp = rng.uniform(60, size - 60, (21, 2)).astype(np.float32)
-            img = rng.rand(size, size, 3).astype(np.float32) * 0.15
-            for j in range(21):
-                img[..., j % 3] += np.exp(-((xx - kp[j, 0]) ** 2 + (yy - kp[j, 1]) ** 2)
-                                          / (2 * 6.0 ** 2))
-            Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            Image.fromarray(blob_frame(rng, size, size, kp)).save(
                 os.path.join(color, "%.5d.png" % i))
             uv = np.zeros((42, 3))
             uv[:21, :2], uv[:21, 2], uv[21:, :2] = kp, 1, 5.0
@@ -1309,6 +1329,24 @@ def write_fake_rhd(root, n_train=96, n_eval=16, size=320):
                        "K": np.array([[320.0, 0, 160], [0, 320.0, 160], [0, 0, 1]])}
         with open(os.path.join(base, set_name, "anno_%s.pickle" % set_name), "wb") as f:
             pickle.dump(anno, f)
+
+
+def write_style_weights(work_dir):
+    """Random style weights in the reference's files under
+    ``work_dir/saved_models``, as ``--decoder-name saved_models/decoder_rand.pth``
+    reads them (once per directory)."""
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet
+
+    out = os.path.join(work_dir, "saved_models")
+    if os.path.isdir(out):
+        return
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    os.makedirs(out)
+    torch.save(style.encoder.state_dict(), os.path.join(out, "vgg_normalised.pth"))
+    torch.save(style.decoder.state_dict(), os.path.join(out, "decoder_rand.pth"))
 
 
 def lengthen_fake_rhd(root, n):
@@ -1349,19 +1387,13 @@ def phase_trainer_cli(device, work_dir, checkpoint):
         emit({"phase": "trainer_cli", "ran": False, "reason": "Pillow is not installed"})
         return None
     from uda_poseestimation_torch import train_human
-    from uda_poseestimation_torch.models import StyleNet, resnet
+    from uda_poseestimation_torch.models import resnet
     from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
 
     t0 = time.perf_counter()
     root = os.path.join(work_dir, "rhd")
     write_fake_rhd(root)
-    style = StyleNet()
-    style.reset_parameters(torch.Generator().manual_seed(1))
-    os.makedirs(os.path.join(work_dir, "saved_models"))
-    torch.save(style.encoder.state_dict(),
-               os.path.join(work_dir, "saved_models", "vgg_normalised.pth"))
-    torch.save(style.decoder.state_dict(),
-               os.path.join(work_dir, "saved_models", "decoder_rand.pth"))
+    write_style_weights(work_dir)
     fixture_s = time.perf_counter() - t0
     workers = min(8, os.cpu_count() or 1)
     common = [root, root, "-s", "RenderedHandPose", "-t", "RenderedHandPose",
@@ -1442,6 +1474,316 @@ def phase_trainer_cli(device, work_dir, checkpoint):
     return launches
 
 
+# the fake trees of phase trainer_pairs (PERF.md section 4 states the sizes
+# that no source records): FreiHAND's full index and frame size, Human3.6M's
+# 512² crops, SURREAL's 240² frames, LSP's 2000 images, H3D's square crops
+FAKE_TREES = {
+    "freihand": {"index": 32560, "versions": 4, "frame": 224, "distinct_frames": 16},
+    "h36m": {"per_part": 1000, "parts": (1, 5, 6, 7, 8, 9, 11), "crop": 512,
+             "distinct_frames": 32},
+    "surreal": {"train": 2400, "val": 240, "test": 16200, "frame": 240,
+                "distinct_frames": 32},
+    "lsp": {"images": 2000, "height": (140, 260), "width": (100, 260),
+            "distinct_frames": 32},
+    "h3d": {"samples": 4000, "crop": 512, "distinct_frames": 32},
+}
+
+
+def _frames(rng, directory, sizes, k, margin=0.15):
+    """A distinct blob frame of each (h, w) of ``sizes`` with ``k`` blobs,
+    in ``directory`` (frame0.jpg, ...); their paths. The names of a tree
+    are hard links to these, in turn."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(directory)
+    paths = []
+    for i, (h, w) in enumerate(sizes):
+        kp = np.stack([rng.uniform(margin * w, (1 - margin) * w, k),
+                       rng.uniform(margin * h, (1 - margin) * h, k)], axis=1)
+        paths.append(os.path.join(directory, "frame%d.jpg" % i))
+        Image.fromarray(blob_frame(rng, h, w, kp)).save(paths[-1], quality=90)
+    return paths
+
+
+def _link(frames, names):
+    for directory in {os.path.dirname(name) for name in names}:
+        os.makedirs(directory, exist_ok=True)
+    for i, name in enumerate(names):
+        os.link(frames[i % len(frames)], name)
+
+
+def _write_json(path, value):
+    with open(path, "w") as f:
+        f.write(json.dumps(value))
+
+
+def write_fake_freihand(root):
+    """FreiHAND_pub_v2's training layout at its frame size: the full
+    32560-entry training_{K,mano,xyz}.json (61 MANO parameters an entry;
+    hands 0.5-0.7 m from a camera of focal length 450-520 px, so they fill
+    most of the 224² frame) and all 130240 image names of the four colour
+    versions, since every name of the 3200-sample test split is read."""
+    import numpy as np
+
+    cfg = FAKE_TREES["freihand"]
+    n, size = cfg["index"], cfg["frame"]
+    rng = np.random.RandomState(2)
+    rgb = os.path.join(root, "training", "rgb")
+    os.makedirs(os.path.join(root, "evaluation"))
+    frames = _frames(rng, os.path.join(root, "frames"), [(size, size)] * cfg["distinct_frames"],
+                     21)
+    focal = rng.uniform(450, 520, n)
+    c = size / 2
+    _write_json(os.path.join(root, "training_K.json"),
+                [[[f, 0.0, c], [0.0, f, c], [0.0, 0.0, 1.0]] for f in focal.tolist()])
+    _write_json(os.path.join(root, "training_mano.json"),
+                (rng.randn(n, 1, 61) * 0.5).tolist())
+    center = np.stack([rng.uniform(-0.03, 0.03, n), rng.uniform(-0.03, 0.03, n),
+                       rng.uniform(0.5, 0.7, n)], axis=1)
+    xyz = center[:, None, :] + rng.uniform(-1, 1, (n, 21, 3)) * [0.08, 0.08, 0.04]
+    _write_json(os.path.join(root, "training_xyz.json"), xyz.tolist())
+    _link(frames, [os.path.join(rgb, "%08d.jpg" % i) for i in range(cfg["versions"] * n)])
+
+
+def write_fake_h36m(root):
+    """The preprocessed Human3.6M layout that ``_preprocess`` writes:
+    ``crop_images`` of 512² and ``annotations/keypoints2d_<part>.json`` for
+    subjects 1, 5-9 and 11 (keypoints in crop pixels, 3D keypoints in camera
+    millimetres 4-6 m away, intrinsics scaled to the crop)."""
+    import numpy as np
+
+    cfg = FAKE_TREES["h36m"]
+    size, n = cfg["crop"], cfg["per_part"]
+    rng = np.random.RandomState(3)
+    frames = _frames(rng, os.path.join(root, "frames"), [(size, size)] * cfg["distinct_frames"],
+                     16)
+    os.makedirs(os.path.join(root, "annotations"))
+    for part in cfg["parts"]:
+        names = [f"s_{part:02d}/s_{part:02d}_{i:06d}.jpg" for i in range(n)]
+        _link(frames, [os.path.join(root, "crop_images", name) for name in names])
+        focal = rng.uniform(900, 1000, n)
+        _write_json(os.path.join(root, "annotations", f"keypoints2d_{part}.json"), [
+            {"name": name,
+             "keypoint2d": rng.uniform(0.17 * size, 0.83 * size, (16, 2)).tolist(),
+             "keypoint3d": (rng.uniform(-900, 900, (16, 3))
+                            + [0, 0, rng.uniform(4500, 5500)]).tolist(),
+             "intrinsic_matrix": [[f, 0.0, size / 2], [0.0, f, size / 2], [0.0, 0.0, 1.0]]}
+            for name, f in zip(names, focal.tolist())])
+
+
+def write_fake_surreal(root):
+    """The processed SURREAL layout: ``train/run{0,1,2}``, ``val`` and
+    ``test``, each with ``run{0,1,2}.json`` over 240² frames (24 SMPL joints
+    a sample, 3-6 m from the camera); the test directory large enough that
+    its split reaches the 3200-sample cap."""
+    import numpy as np
+
+    cfg = FAKE_TREES["surreal"]
+    size = cfg["frame"]
+    rng = np.random.RandomState(4)
+    frames = _frames(rng, os.path.join(root, "frames"), [(size, size)] * cfg["distinct_frames"],
+                     24)
+    for split in ("train", "val", "test"):
+        for run in range(3):
+            n = cfg[split] // 3
+            names = ["img%06d.jpg" % i for i in range(n)]
+            _link(frames, [os.path.join(root, split, f"run{run}", name) for name in names])
+            _write_json(os.path.join(root, split, f"run{run}.json"), [
+                {"name": name,
+                 "keypoint2d": rng.uniform(0.12 * size, 0.88 * size, (24, 2)).tolist(),
+                 "keypoint3d": (rng.uniform(-0.8, 0.8, (24, 3))
+                                + [0, 0, rng.uniform(3.5, 5.5)]).tolist(),
+                 "intrinsic_matrix": [[600.0, 0.0, size / 2], [0.0, 600.0, size / 2],
+                                      [0.0, 0.0, 1.0]]}
+                for name in names])
+
+
+def write_fake_lsp(root):
+    """LSP's layout: ``images/im0001.jpg``-``im2000.jpg`` of varied size,
+    tall and wide, and a 2000-entry ``joints.mat`` (x, y and an occlusion
+    bit for each of the 14 joints, inside each image's own frame)."""
+    import numpy as np
+    import scipy.io
+
+    cfg = FAKE_TREES["lsp"]
+    rng = np.random.RandomState(5)
+    sizes = [(int(rng.randint(*cfg["height"])), int(rng.randint(*cfg["width"])))
+             for _ in range(cfg["distinct_frames"])]
+    frames = _frames(rng, os.path.join(root, "frames"), sizes, 14)
+    n = cfg["images"]
+    _link(frames, [os.path.join(root, "images", "im%04d.jpg" % (i + 1)) for i in range(n)])
+    joints = np.zeros((3, 14, n))
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        joints[0, :, i] = rng.uniform(0.1 * w, 0.9 * w, 14)
+        joints[1, :, i] = rng.uniform(0.1 * h, 0.9 * h, 14)
+    joints[2] = rng.rand(14, n) < 0.15
+    scipy.io.savemat(os.path.join(root, "joints.mat"), {"joints": joints})
+
+
+def write_fake_h3d(root):
+    """Hand-3D-Studio's cropped layout: ``H3D_crop/annotation.json`` and
+    square crops, half of the samples holding an object (the ``noobject``
+    task keeps the other half)."""
+    import numpy as np
+
+    cfg = FAKE_TREES["h3d"]
+    size, n = cfg["crop"], cfg["samples"]
+    rng = np.random.RandomState(6)
+    base = os.path.join(root, "H3D_crop")
+    frames = _frames(rng, os.path.join(root, "frames"), [(size, size)] * cfg["distinct_frames"],
+                     21)
+    names = [f"subject{i % 10}/{i:06d}.jpg" for i in range(n)]
+    _link(frames, [os.path.join(base, name) for name in names])
+    _write_json(os.path.join(base, "annotation.json"), [
+        {"name": name, "without_object": i % 2,
+         "keypoint2d": rng.uniform(0.2 * size, 0.8 * size, (21, 2)).tolist(),
+         "keypoint3d": (rng.uniform(-0.08, 0.08, (21, 3))
+                        + [0, 0, rng.uniform(0.4, 0.6)]).tolist(),
+         "intrinsic_matrix": [[1000.0, 0.0, size / 2], [0.0, 1000.0, size / 2],
+                              [0.0, 0.0, 1.0]]}
+        for i, name in enumerate(names)])
+
+
+# the four train_human.py lines of ``script``, in its order, and each run of
+# phase trainer_pairs: (name, pair, extra flags, occlusion_warp launches)
+SCRIPT_PAIRS = ("f2r", "s2h", "s2l", "r2h")
+PAIR_RUNS = (("r2h", "r2h", ["--pretrain-epoch", "-1"], 3),
+             ("s2h_pretrain", "s2h", ["--pretrain-epoch", "1"], 0),
+             ("s2h", "s2h", ["--pretrain-epoch", "-1"], 3),
+             ("s2l", "s2l", ["--pretrain-epoch", "-1"], 3),
+             ("f2r", "f2r", ["--pretrain-epoch", "-1"], 3))
+
+
+def script_line(pair):
+    """The flags of ``script``'s train_human.py line for ``pair``, its two
+    dataset roots first."""
+    import shlex
+
+    with open(os.path.join(REPO, "script")) as f:
+        lines = [shlex.split(ln) for ln in f if ln.startswith("python train_human.py")]
+    return lines[SCRIPT_PAIRS.index(pair)][2:]
+
+
+def _rss_kb():
+    """The process's resident set size (``/proc/self/statm``) and its peak
+    (``getrusage``), in kB; the card's machine has no VmHWM line in
+    ``/proc/self/status``."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        resident_pages = int(f.read().split()[1])
+    return {"rss": resident_pages * os.sysconf("SC_PAGE_SIZE") // 1024,
+            "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}
+
+
+def phase_trainer_pairs(device, work_dir):
+    """The four human lines of ``script`` through the port's
+    ``train_human.main`` in this process, each with its own flags and
+    datasets on fake trees in their layouts (``write_fake_*``), random
+    style weights, pose_resnet101 b=32 at 256²/64², -j as in trainer_cli,
+    one epoch of 3 iterations: an adapt epoch for r2h, s2h, s2l and f2r,
+    and a pretrain epoch for s2h. Each run's launches (occlusion_warp 3 an
+    adapt epoch, none in pretraining), finite epoch lines and no worker
+    left are required; each run prints its wall time, dataset construction
+    time (build_data) and the parent's RSS after it and at the end, its
+    first-batch wait, the median Time and Data of iterations 1-2, and each
+    validation's seconds and items. Returns the launches of each run."""
+    import multiprocessing
+
+    import torch
+
+    from uda_poseestimation_torch import train_human
+
+    t0 = time.perf_counter()
+    roots = {name: os.path.join(work_dir, name)
+             for name in ("rhd", "freihand", "h36m", "surreal", "lsp", "h3d")}
+    if not os.path.isdir(roots["rhd"]):  # phase trainer_cli's tree otherwise
+        write_fake_rhd(roots["rhd"])
+    for name, write in (("freihand", write_fake_freihand), ("h36m", write_fake_h36m),
+                        ("surreal", write_fake_surreal), ("lsp", write_fake_lsp),
+                        ("h3d", write_fake_h3d)):
+        write(roots[name])
+    write_style_weights(work_dir)
+    fixture_s = time.perf_counter() - t0
+    root_of = {"RenderedHandPose": "rhd", "FreiHand": "freihand", "Human36M": "h36m",
+               "SURREAL": "surreal", "LSP": "lsp", "Hand3DStudio": "h3d"}
+    workers = min(8, os.cpu_count() or 1)
+    none = dict.fromkeys(_counters(), 0)
+    build_data, run_validate = train_human.build_data, train_human.run_validate
+    record = {}
+
+    def timed_build(args, pin):
+        t = time.perf_counter()
+        out = build_data(args, pin)
+        record["construct_s"] = time.perf_counter() - t
+        record["rss_kb_after_construction"] = _rss_kb()
+        return out
+
+    def timed_validate(eval_step, model, loader, args, visualize=None):
+        t = time.perf_counter()
+        out = run_validate(eval_step, model, loader, args, visualize=visualize)
+        record.setdefault("validation", []).append(
+            {"s": time.perf_counter() - t, "items": len(loader.dataset)})
+        return out
+
+    launches = {}
+    cwd, fuse_env = os.getcwd(), os.environ.pop("UDA_BN_FUSE", None)
+    train_human.build_data, train_human.run_validate = timed_build, timed_validate
+    os.chdir(work_dir)
+    try:
+        for name, pair, extra, warps in PAIR_RUNS:
+            args = train_human.build_parser().parse_args(script_line(pair) + [
+                "-a", TRAINER_ARCH, "-b", str(MAIN_B), "--test-batch", str(MAIN_B),
+                "--image-size", str(MAIN_IMAGE), "--heatmap-size", str(MAIN_HEATMAP),
+                "--epochs", "1", "-i", "3", "-p", "1", "-j", str(workers),
+                "--decoder-name", "saved_models/decoder_rand.pth", "--device", str(device),
+                "--log", f"logs/{name}"] + extra)
+            args.source_root = roots[root_of[args.source]]
+            args.target_root = roots[root_of[args.target]]
+            record.clear()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                _reset_counts()
+                r0 = time.perf_counter()
+                train_human.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - r0
+                launches[name] = _read_counts()
+            gc.collect()
+            if multiprocessing.active_children():
+                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            want = dict(none, occlusion_warp=warps)
+            if launches[name] != want:
+                raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
+            log_dir = f"logs/{name}_{TRAINER_ARCH}"
+            (log,) = [f for f in os.listdir(log_dir) if f.startswith("train-")]
+            with open(os.path.join(log_dir, log)) as f:
+                lines = _finite_lines(f.read(), ("Epoch: 0 ",))
+            _finite_lines(printed.getvalue(), ("Epoch: [0][",))
+            times = printed_times(printed.getvalue())
+            (source_val, target_val) = record["validation"]
+            emit({"phase": "trainer_pairs", "run": name, "source": args.source,
+                  "target": args.target, "target_train": args.target_train,
+                  "wall_s": wall, "construct_s": record["construct_s"],
+                  "first_batch_s": times["first_batch_s"],
+                  "time_s_median_1_2": statistics.median(times["time_s_each"][1:3]),
+                  "data_s_median_1_2": statistics.median(times["data_s_each"][1:3]),
+                  "validation_source": source_val, "validation_target": target_val,
+                  "rss_kb_after_construction": record["rss_kb_after_construction"],
+                  "rss_kb_end": _rss_kb(), "launches": launches[name], "log": lines,
+                  "time_s_each": times["time_s_each"], "data_s_each": times["data_s_each"]})
+    finally:
+        os.chdir(cwd)
+        train_human.build_data, train_human.run_validate = build_data, run_validate
+        if fuse_env is not None:
+            os.environ["UDA_BN_FUSE"] = fuse_env
+    emit({"phase": "trainer_pairs", "workers": workers, "fake_trees": FAKE_TREES,
+          "fixture_s": fixture_s, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1509,12 +1851,16 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cli_launches = timed("trainer_cli", phase_trainer_cli, device, work_dir, checkpoint)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pair_launches = timed("trainer_pairs", phase_trainer_pairs, device, work_dir)
     emit({"phase_seconds": seconds})
     # each row's launches are those of the path it lies on (warp_gather: none),
     # in all and in the last measured adapt step; then every path's own count
     by_path = {"main": main_run["launches"], "main_bn_fuse": fused_run["launches"],
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
-               **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()}}
+               **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
+               **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()}}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):
         rows[name]["launches"] = run["launches"][name]

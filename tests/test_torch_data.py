@@ -1,5 +1,5 @@
 """The port's data pipeline and host utilities against the JAX package's:
-each transform, the RHD datasets (4- and 8-tuples, k = 1 and 2), the
+each transform (ResizePad on wide and tall frames), the RHD datasets (4- and 8-tuples, k = 1 and 2), the
 collated batch through make_adapt_batch, group_accuracy, the host PCK
 helpers, the meters' lines, the run logger and the LR schedule, on a tiny
 fake-RHD tree (tools/make_fixtures.make_rhd: 8 training and 4 evaluation
@@ -84,10 +84,17 @@ def assert_same(a, b, path="item"):
         assert type(a) is type(b) and a == b, (path, a, b)
 
 
+def _cropped(transform, width, height):
+    """``transform`` on the top-left ``width`` x ``height`` of the image."""
+    return lambda image, **kwargs: transform(image.crop((0, 0, width, height)), **kwargs)
+
+
 def _pipeline(T, name, size=SIZE):
     normalize = T.Normalize(MEAN, STD)
     return {
         "resize": lambda: T.Resize(size),
+        "resize_pad_wide": lambda: _cropped(T.ResizePad(size), 200, 117),
+        "resize_pad_tall": lambda: _cropped(T.ResizePad(size), 91, 200),
         "random_resized_crop": lambda: T.RandomResizedCrop(size, scale=(0.6, 1.3)),
         "random_affine_rotation": lambda: T.RandomAffineRotation(
             180, (-30, 30), (0.05, 0.05), (0.6, 1.3)),
@@ -114,7 +121,8 @@ def _frame(rhd_root):
     return image, kp, intrinsic
 
 
-@pytest.mark.parametrize("name", ["resize", "random_resized_crop", "random_affine_rotation",
+@pytest.mark.parametrize("name", ["resize", "resize_pad_wide", "resize_pad_tall",
+                                  "random_resized_crop", "random_affine_rotation",
                                   "affine_numbers", "color_jitter", "gaussian_blur",
                                   "to_tensor", "normalize", "source_train"])
 @pytest.mark.parametrize("seed", [0, 7])

@@ -234,7 +234,9 @@ def test_ema_update_parameters_only():
     assert torch.equal(teacher.running_mean, stats_before)  # buffers untouched
 
 
-_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "uda_poseestimation_tpu", "tools"}
+# tqdm and webcolors are not on the card's machine
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "uda_poseestimation_tpu", "tools", "tqdm",
+              "webcolors"}
 _PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                      (REPO / "uda_poseestimation_torch").rglob("*.py")) + [
                          "chip_smoke.py", "probe_gathers.py"]
@@ -243,8 +245,8 @@ _PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
 @pytest.mark.parametrize("rel", _PORT_FILES)
 def test_port_imports_no_jax(rel):
     """No module of the port, and neither chip_smoke.py nor probe_gathers.py,
-    imports JAX, Flax, Optax, the JAX package or tools/ (at top level or
-    inside a function)."""
+    imports JAX, Flax, Optax, the JAX package, tools/, tqdm or webcolors (at
+    top level or inside a function)."""
     tree = ast.parse((REPO / rel).read_text(), rel)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

@@ -11,6 +11,14 @@ against the repository's ``train_human.py`` (the JAX package's trainer).
   before it writes anything.
 - ``--decoder-name`` reads the reference's torch files as the JAX package's
   ``load_style_net_params`` does: the same weights.
+- The four ``script`` pairs (f2r, s2h, s2l, r2h): every dataset name of
+  their lines and every human name of the JAX registry resolves in the
+  port's; ``build_data`` on each line, its roots pointed at tiny trees
+  (``tests/test_torch_human_datasets.py``'s), gives a source and a target
+  batch, and one pretrain and one adapt step of a small PoseResNet with the
+  source's keypoint count run on the CPU; r2h also runs as ``python -m``
+  for one adapt epoch (the other pairs validate on 2000 or 3200 fixed
+  items, which the card's run covers).
 - CPU drives on a tiny fake-RHD tree (``tools/make_fixtures.make_rhd``,
   8 training and 4 evaluation frames) with random style weights: one
   pretrain epoch through ``python -m``; an adapt epoch from a checkpoint
@@ -28,6 +36,7 @@ equality, the drive for finite logged values.
 import functools
 import math
 import os
+import random
 import re
 import shlex
 import subprocess
@@ -39,13 +48,24 @@ import pytest
 import torch
 
 import train_human as jtrain
+import uda_poseestimation_tpu.data as jdata
+import uda_poseestimation_torch.data as tdata
+from test_torch_human_datasets import (  # noqa: F401 (fixtures)
+    freihand_root,
+    h3d_root,
+    h36m_root,
+    lsp_root,
+    surreal_root,
+)
 from tools.make_fixtures import make_rhd
 from tools.port_torch_weights import load_style_net_params
 from uda_poseestimation_tpu.utils import checkpoint as jckpt
+from uda_poseestimation_torch import engine as tengine
 from uda_poseestimation_torch import train_human as ttrain
 from uda_poseestimation_torch import models, weights
-from uda_poseestimation_torch.models import StyleNet
-from uda_poseestimation_torch.parallel import StepConfig, create_state
+from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet, StyleNet
+from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step, \
+    make_pretrain_step
 from uda_poseestimation_torch.utils import CompleteLogger
 from uda_poseestimation_torch.utils import checkpoint as tckpt
 
@@ -269,3 +289,107 @@ def test_cli_test_phase_resumes_its_checkpoint(fixture_root, pretrained, monkeyp
     assert len(result) == 1 and all(math.isfinite(v) for v in _numbers(result[0]))
     assert lines[-1].startswith("all: ")
     assert np.isfinite(float(lines[-1].split()[1]))
+
+
+PAIRS = ("f2r", "s2h", "s2l", "r2h")  # script's train_human.py lines, in order
+# the pair runs' sizes: small images and batches, in-process loading, the CPU
+SMALL = ["--image-size", "64", "--heatmap-size", "16", "-b", "4", "--test-batch", "4",
+         "-j", "0", "--device", "cpu"]
+
+
+def test_every_human_dataset_name_resolves():
+    names = {getattr(args, key) for args in map(ttrain.build_parser().parse_args,
+                                                _script_lines())
+             for key in ("source", "target", "target_train")}
+    assert names == {"FreiHand", "RenderedHandPose", "RenderedHandPose_mt", "SURREAL",
+                     "Human36M", "Human36M_mt", "LSP", "LSP_mt", "Hand3DStudio",
+                     "Hand3DStudio_mt"}
+    # the JAX registry's human datasets: its hand and body keypoint datasets
+    human = {name for name in jdata.__all__ if not name.endswith("KeypointDataset")
+             and isinstance(getattr(jdata, name), type)
+             and issubclass(getattr(jdata, name), (jdata.Body16KeypointDataset,
+                                                   jdata.Hand21KeypointDataset))}
+    assert names | {"Hand3DStudioAll", "Hand3DStudioAll_mt"} == human
+    for name in human:
+        cls = tdata.__dict__[name]
+        assert cls.__module__.startswith("uda_poseestimation_torch.data."), name
+        assert issubclass(cls, torch.utils.data.Dataset), name
+
+
+@pytest.fixture(scope="module")
+def pair_roots(fixture_root, freihand_root, surreal_root, lsp_root, h36m_root, h3d_root):
+    """Each dataset name's tree."""
+    return {"FreiHand": freihand_root, "RenderedHandPose": str(fixture_root / "rhd"),
+            "SURREAL": surreal_root, "Human36M": h36m_root, "LSP": lsp_root,
+            "Hand3DStudio": h3d_root}
+
+
+def _pair_args(pair, roots, extra=()):
+    args = ttrain.build_parser().parse_args(_script_lines()[PAIRS.index(pair)] + SMALL
+                                            + list(extra))
+    args.source_root, args.target_root = roots[args.source], roots[args.target]
+    return args
+
+
+@pytest.mark.parametrize("pair", PAIRS)
+def test_script_pair_steps_on_cpu(pair, pair_roots):
+    """``build_data`` on the pair's line gives its four loaders; one source
+    and one target batch feed a pretrain and an adapt step of a small
+    PoseResNet with the source's keypoint count."""
+    args = _pair_args(pair, pair_roots)
+    random.seed(0)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    data = ttrain.build_data(args, pin=False)
+    num_keypoints = data.train_source_dataset.num_keypoints
+    assert num_keypoints == {"f2r": 21, "s2h": 16, "s2l": 16, "r2h": 21}[pair]
+    assert data.val_target_loader.dataset.num_keypoints == num_keypoints
+    src = next(iter(data.train_source_loader))
+    tgt = next(iter(data.train_target_loader))
+    assert src[0].shape == (4, 64, 64, 3) and src[1].shape == (4, num_keypoints, 16, 16)
+    assert tgt[4][0].shape == (4, 64, 64, 3) and tgt[3]["aug_param_stu"].shape == (4, 6)
+
+    cfg = StepConfig(image_size=64, heatmap_size=16, k=args.k, mask_ratio=args.mask_ratio,
+                     occlude_rate=args.occlude_rate, occlude_thresh=args.occlude_thresh,
+                     aux_outputs=True)
+    state = create_state(PoseResNet(ResNet(Bottleneck, (1, 1, 1, 1)), num_keypoints), cfg,
+                         seed=0, device="cpu")
+    state, metrics, y_s = make_pretrain_step(cfg, device="cpu")(
+        state, tengine.make_source_batch(*src[:3]), 1e-4)
+    assert y_s.shape == (4, num_keypoints, 16, 16)
+    assert all(math.isfinite(float(metrics[k])) for k in ("loss_all", "acc_s"))
+    state, metrics, y_s = make_adapt_step(cfg, device="cpu")(
+        state, tengine.make_adapt_batch(src, tgt), 1e-4,
+        generator=torch.Generator().manual_seed(0))
+    assert all(math.isfinite(float(metrics[k])) for k in ("loss_all", "loss_s", "loss_c"))
+    aux = metrics["aux"]
+    assert aux["y_t_tea_recon"].shape == aux["y_t_stu_recon"].shape == (4, num_keypoints,
+                                                                       16, 16)
+    assert aux["activates"].shape == aux["tea_mask"].shape == (4, num_keypoints)
+
+
+def test_r2h_cli_drive_on_cpu(fixture_root, pair_roots):
+    """The r2h line as ``python -m``, one adapt epoch of one iteration at
+    small sizes with random style weights; the log's epoch line and the H3D
+    target's group lines are finite."""
+    args = _pair_args("r2h", pair_roots)
+    argv = [args.source_root, args.target_root] + _script_lines()[PAIRS.index("r2h")][2:] + \
+        SMALL + ["-a", "pose_resnet50", "--epochs", "1", "--pretrain-epoch", "-1", "-i", "1",
+                 "-p", "1", "--decoder-name", "saved_models/decoder_rand.pth",
+                 "--log", "logs/r2h"]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-m", "uda_poseestimation_torch.train_human", *argv],
+                          cwd=fixture_root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    (log,) = (fixture_root / "logs" / "r2h_pose_resnet50").glob("train-*.txt")
+    lines = log.read_text().splitlines()
+    (flags,) = [line for line in lines if line.startswith("source_root=")]
+    assert "source=RenderedHandPose " in flags and "target=Hand3DStudio " in flags
+    assert lines[lines.index("Source train: 2") + 3] == "Target test: 1"
+    epochs = _epoch_lines("\n".join(lines))
+    adapt = [line for line in proc.stdout.splitlines() if line.startswith("Epoch: [0][")]
+    assert len(epochs) == 1 and len(adapt) == 1 and "Loss (c)" in adapt[0]
+    for line in epochs + adapt:
+        assert all(math.isfinite(v) for v in _numbers(line)), line
+    for name in ("MCP", "PIP", "DIP", "fingertip", "all"):
+        assert sum(line.startswith(name + ": ") for line in lines) == 1, name

@@ -31,6 +31,8 @@ from .util import (
     get_bounding_box,
     intersection,
     keypoint2d_to_3d,
+    mean_teacher_item,
+    normalize_3d,
     scale_box,
 )
 
@@ -113,12 +115,6 @@ def _load_cropped_hand(ds, index):
     return sample, image, keypoint2d, intrinsic_matrix, Zc, visible
 
 
-def _normalize_3d(keypoint3d_camera):
-    """Center on middle-finger MCP (joint 9), unit wrist->MCP distance."""
-    kp = keypoint3d_camera - keypoint3d_camera[9:10, :]
-    return kp / np.sqrt(np.sum(kp[0, :] ** 2))
-
-
 class RenderedHandPose(Hand21KeypointDataset):
     """RHD eval/source dataset (4-tuple contract)."""
 
@@ -143,7 +139,7 @@ class RenderedHandPose(Hand21KeypointDataset):
 
         target, target_weight = generate_target(keypoint2d, visible, self.heatmap_size,
                                                 self.sigma, self.image_size)
-        keypoint3d_n = _normalize_3d(keypoint3d_camera)
+        keypoint3d_n = normalize_3d(keypoint3d_camera)
         meta = {
             "image": sample["name"],
             "target_small": generate_target(keypoint2d, visible, (8, 8),
@@ -176,62 +172,5 @@ class RenderedHandPose_mt(Hand21KeypointDataset):
 
     def __getitem__(self, index):
         sample, image, keypoint2d, intrinsic_matrix, Zc, visible = _load_cropped_hand(self, index)
-
-        image, data = self.transforms_base(image, keypoint2d=keypoint2d,
-                                           intrinsic_matrix=intrinsic_matrix)
-        keypoint2d = data["keypoint2d"]
-        intrinsic_matrix = data["intrinsic_matrix"]
-
-        image_stu, data_stu = self.transforms_stu(image, keypoint2d=keypoint2d,
-                                                  intrinsic_matrix=intrinsic_matrix)
-        keypoint2d_stu = data_stu["keypoint2d"]
-        intrinsic_matrix_stu = data_stu["intrinsic_matrix"]
-        aug_param_stu = data_stu["aug_param"]
-        keypoint3d_stu = keypoint2d_to_3d(keypoint2d_stu, intrinsic_matrix_stu, Zc)
-
-        target_stu, target_weight_stu = generate_target(
-            keypoint2d_stu, visible, self.heatmap_size, self.sigma, self.image_size)
-        target_ori, target_weight_ori = generate_target(
-            keypoint2d, visible, self.heatmap_size, self.sigma, self.image_size)
-
-        keypoint3d_n_stu = _normalize_3d(keypoint3d_stu)
-        meta_stu = {
-            "image": sample["name"],
-            "target_small_stu": generate_target(keypoint2d_stu, visible, (8, 8),
-                                                self.sigma, self.image_size),
-            "keypoint2d_ori": keypoint2d,
-            "target_ori": target_ori,
-            "target_weight_ori": target_weight_ori,
-            "keypoint2d_stu": keypoint2d_stu,
-            "keypoint3d_stu": keypoint3d_n_stu,
-            "aug_param_stu": aug_param_stu,
-            "z_stu": keypoint3d_n_stu[:, 2],
-        }
-
-        images_tea, targets_tea, target_weights_tea, metas_tea = [], [], [], []
-        for _ in range(self.k):
-            image_tea, data_tea = self.transforms_tea(image, keypoint2d=keypoint2d,
-                                                      intrinsic_matrix=intrinsic_matrix)
-            keypoint2d_tea = data_tea["keypoint2d"]
-            intrinsic_matrix_tea = data_tea["intrinsic_matrix"]
-            aug_param_tea = data_tea["aug_param"]
-            keypoint3d_tea = keypoint2d_to_3d(keypoint2d_tea, intrinsic_matrix_tea, Zc)
-
-            target_tea, target_weight_tea = generate_target(
-                keypoint2d_tea, visible, self.heatmap_size, self.sigma, self.image_size)
-            keypoint3d_n_tea = _normalize_3d(keypoint3d_tea)
-            metas_tea.append({
-                "image": sample["name"],
-                "target_small_tea": generate_target(keypoint2d_tea, visible, (8, 8),
-                                                    self.sigma, self.image_size),
-                "keypoint2d_tea": keypoint2d_tea,
-                "keypoint3d_tea": keypoint3d_n_tea,
-                "aug_param_tea": aug_param_tea,
-                "z_tea": keypoint3d_n_tea[:, 2],
-            })
-            images_tea.append(image_tea)
-            targets_tea.append(target_tea)
-            target_weights_tea.append(target_weight_tea)
-
-        return (image_stu, target_stu, target_weight_stu, meta_stu,
-                images_tea, targets_tea, target_weights_tea, metas_tea)
+        return mean_teacher_item(self, sample["name"], image, keypoint2d, intrinsic_matrix,
+                                 Zc, visible)

@@ -4,7 +4,7 @@ The port's copy of the transforms that the human trainer's
 ``build_transforms`` uses, from ``uda_poseestimation_tpu/data/transforms.py``:
 ``Compose``, ``ToTensor``, ``Normalize``, ``Resize``, ``RandomResizedCrop``,
 ``RandomAffineRotation``, ``ColorJitter``, ``GaussianBlur`` and the helpers
-they call. Geometry is PIL + numpy with torchvision's matrix conventions:
+they call, and ``ResizePad``, the LSP datasets' fixed resize. Geometry is PIL + numpy with torchvision's matrix conventions:
 
 - ``affine``: PIL ``Image.transform(AFFINE, inverse_matrix)`` about the
   center (w*0.5+0.5, h*0.5+0.5) with NEAREST resampling, keypoints moved by
@@ -13,7 +13,7 @@ they call. Geometry is PIL + numpy with torchvision's matrix conventions:
   tx, ty, shear_x, shear_y, scale);
 - ``Compose`` threads keyword arguments through the transforms as the
   reference does (:197-213), so keypoint2d / intrinsic_matrix / aug_param
-  flow the same way;
+  flow the same way, and ``+`` joins two of them;
 - ``ToTensor`` returns HWC float32 numpy in [0, 1], the layout of the
   step's batch (NHWC); the loader turns batches into tensors.
 
@@ -133,6 +133,35 @@ def affine(image: Image.Image, angle, shear_x, shear_y, trans_x, trans_y, scale,
     return image, keypoint2d, aug_param
 
 
+def resize_pad(img, keypoint2d, size, interpolation=Image.BILINEAR):
+    """Resize the longer side to ``size`` and pad the shorter one with zeros,
+    centered (floor before, ceil after), to a ``size`` square."""
+    w, h = img.size
+    keypoint2d = np.copy(keypoint2d).astype(np.float64)
+    if w < h:
+        oh = size
+        ow = int(size * w / h)
+        img = img.resize((ow, oh), interpolation)
+        pad_top = pad_bottom = 0
+        pad_left = math.floor((size - ow) / 2)
+        pad_right = math.ceil((size - ow) / 2)
+        keypoint2d = keypoint2d * oh / h
+        keypoint2d[:, 0] += (size - ow) / 2
+    else:
+        ow = size
+        oh = int(size * h / w)
+        img = img.resize((ow, oh), interpolation)
+        pad_top = math.floor((size - oh) / 2)
+        pad_bottom = math.ceil((size - oh) / 2)
+        pad_left = pad_right = 0
+        keypoint2d = keypoint2d * ow / w
+        keypoint2d[:, 1] += (size - oh) / 2
+        keypoint2d[:, 0] += (size - ow) / 2
+    arr = np.pad(np.asarray(img), ((pad_top, pad_bottom), (pad_left, pad_right), (0, 0)),
+                 "constant", constant_values=0)
+    return Image.fromarray(arr), keypoint2d
+
+
 # ---------------------------------------------------------------------------
 # composable transforms (kwargs-threading protocol)
 # ---------------------------------------------------------------------------
@@ -145,6 +174,9 @@ class Compose:
         for t in self.transforms:
             image, kwargs = t(image, **kwargs)
         return image, kwargs
+
+    def __add__(self, other):
+        return Compose(self.transforms + other.transforms)
 
 
 class ToTensor:
@@ -223,6 +255,17 @@ class Resize:
         image, keypoint2d, intrinsic_matrix = resize(
             image, self.size, self.interpolation, keypoint2d, intrinsic_matrix)
         kwargs.update(keypoint2d=keypoint2d, intrinsic_matrix=intrinsic_matrix)
+        return image, kwargs
+
+
+class ResizePad:
+    def __init__(self, size, interpolation=Image.BILINEAR):
+        self.size = size
+        self.interpolation = interpolation
+
+    def __call__(self, img, keypoint2d, **kwargs):
+        image, keypoint2d = resize_pad(img, keypoint2d, self.size, self.interpolation)
+        kwargs.update(keypoint2d=keypoint2d)
         return image, kwargs
 
 

@@ -1,10 +1,13 @@
-"""Host-side (numpy) dataset numerics for the RHD datasets.
+"""Host-side (numpy) dataset numerics for the human datasets.
 
-The port's copy of what ``RenderedHandPose`` needs from
+The port's copy of what the human datasets need from
 ``uda_poseestimation_tpu/data/util.py`` (reference lib/datasets/util.py):
 ``generate_target`` (:12-70, the reference's paste-window math),
 ``keypoint2d_to_3d``, ``scale_box``, ``get_bounding_box``, ``area`` and
-``intersection``. Every result equals the JAX package's bit for bit.
+``intersection``; and two helpers that the datasets' copies share:
+``normalize_3d`` and ``mean_teacher_item``, the 8-tuple of the
+``*_mt`` datasets that carry 3D keypoints. Every result equals the JAX
+package's bit for bit.
 """
 
 from __future__ import annotations
@@ -94,3 +97,70 @@ def intersection(box_a, box_b):
     la, ua, ra, lo_a = box_a
     lb, ub, rb, lo_b = box_b
     return max(la, lb), max(ua, ub), min(ra, rb), min(lo_a, lo_b)
+
+
+def normalize_3d(keypoint3d):
+    """Center on joint 9 and scale joint 0's offset from it to unit length."""
+    kp = keypoint3d - keypoint3d[9:10, :]
+    return kp / np.sqrt(np.sum(kp[0, :] ** 2))
+
+
+def mean_teacher_item(ds, image_name, image, keypoint2d, intrinsic_matrix, Zc, visible):
+    """The 8-tuple of a mean-teacher dataset with 3D keypoints (reference
+    rendered_hand_pose_mt.py:62-159, and the same in hand_3d_studio_mt.py and
+    human36m_mt.py): ``ds.transforms_base`` once, then the student view and
+    ``ds.k`` teacher views of its output, in this order of draws."""
+    image, data = ds.transforms_base(image, keypoint2d=keypoint2d,
+                                     intrinsic_matrix=intrinsic_matrix)
+    keypoint2d = data["keypoint2d"]
+    intrinsic_matrix = data["intrinsic_matrix"]
+
+    image_stu, data_stu = ds.transforms_stu(image, keypoint2d=keypoint2d,
+                                            intrinsic_matrix=intrinsic_matrix)
+    keypoint2d_stu = data_stu["keypoint2d"]
+    keypoint3d_stu = keypoint2d_to_3d(keypoint2d_stu, data_stu["intrinsic_matrix"], Zc)
+
+    target_stu, target_weight_stu = generate_target(
+        keypoint2d_stu, visible, ds.heatmap_size, ds.sigma, ds.image_size)
+    target_ori, target_weight_ori = generate_target(
+        keypoint2d, visible, ds.heatmap_size, ds.sigma, ds.image_size)
+
+    keypoint3d_n_stu = normalize_3d(keypoint3d_stu)
+    meta_stu = {
+        "image": image_name,
+        "target_small_stu": generate_target(keypoint2d_stu, visible, (8, 8),
+                                            ds.sigma, ds.image_size),
+        "keypoint2d_ori": keypoint2d,
+        "target_ori": target_ori,
+        "target_weight_ori": target_weight_ori,
+        "keypoint2d_stu": keypoint2d_stu,
+        "keypoint3d_stu": keypoint3d_n_stu,
+        "aug_param_stu": data_stu["aug_param"],
+        "z_stu": keypoint3d_n_stu[:, 2],
+    }
+
+    images_tea, targets_tea, target_weights_tea, metas_tea = [], [], [], []
+    for _ in range(ds.k):
+        image_tea, data_tea = ds.transforms_tea(image, keypoint2d=keypoint2d,
+                                                intrinsic_matrix=intrinsic_matrix)
+        keypoint2d_tea = data_tea["keypoint2d"]
+        keypoint3d_tea = keypoint2d_to_3d(keypoint2d_tea, data_tea["intrinsic_matrix"], Zc)
+
+        target_tea, target_weight_tea = generate_target(
+            keypoint2d_tea, visible, ds.heatmap_size, ds.sigma, ds.image_size)
+        keypoint3d_n_tea = normalize_3d(keypoint3d_tea)
+        metas_tea.append({
+            "image": image_name,
+            "target_small_tea": generate_target(keypoint2d_tea, visible, (8, 8),
+                                                ds.sigma, ds.image_size),
+            "keypoint2d_tea": keypoint2d_tea,
+            "keypoint3d_tea": keypoint3d_n_tea,
+            "aug_param_tea": data_tea["aug_param"],
+            "z_tea": keypoint3d_n_tea[:, 2],
+        })
+        images_tea.append(image_tea)
+        targets_tea.append(target_tea)
+        target_weights_tea.append(target_weight_tea)
+
+    return (image_stu, target_stu, target_weight_stu, meta_stu,
+            images_tea, targets_tea, target_weights_tea, metas_tea)

@@ -11,8 +11,9 @@ the CUDA card unless ``--device`` asks for another (``--device cpu``).
 
 Not ported yet, and refused at start with the ROADMAP item that brings
 them: ``--device-aug`` and ``--decode-cache`` (A9), ``--steps-per-dispatch``
-above 1 (A8), the ``--dist-*`` multi-process flags (A12). Datasets: the RHD
-pair (``RenderedHandPose``, ``RenderedHandPose_mt``); the others wait (A7).
+above 1 (A8), the ``--dist-*`` multi-process flags (A12). Datasets: every
+human dataset of the JAX registry (``data/__init__.py``), so the four
+``train_human.py`` lines of ``script`` (f2r, s2h, s2l, r2h) run.
 
 Model weights start from ``create_state(..., seed=--seed)``: the JAX
 package's initializers and distributions, drawn from torch's generator, so
@@ -24,9 +25,11 @@ from __future__ import annotations
 import argparse
 import random
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.data import DataLoader, Dataset
 
 from . import data as datasets
 from . import models
@@ -104,29 +107,25 @@ def check_ported(args):
                 f"{flag} is not ported to uda_poseestimation_torch yet (ROADMAP.md {item})")
 
 
-def main(args: argparse.Namespace):
-    check_ported(args)
-    device = resolve_device(args.device)
-    logger = CompleteLogger(args.log + "_" + args.arch, args.phase)
-    try:
-        _train(args, device, logger)
-    finally:
-        logger.close()
+class Data(NamedTuple):
+    """The source training set (its keypoint count sizes the model) and the
+    four loaders of a run."""
+    train_source_dataset: Dataset
+    train_source_loader: DataLoader
+    val_source_loader: DataLoader
+    train_target_loader: DataLoader
+    val_target_loader: DataLoader
 
 
-def _train(args, device, logger):
-    logger.write(" ".join(f"{k}={v}" for k, v in vars(args).items()))
-    if args.seed is not None:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
-        torch.manual_seed(args.seed)  # the loaders' shuffles and worker seeds
-        warnings.warn("You have chosen to seed training.")
-
+def build_data(args, pin: bool) -> Data:
+    """The datasets of ``-s``, ``--target-train`` and ``-t`` under their
+    roots, and their loaders, built in the JAX trainer's order (the
+    constructors that reseed the global ``random`` stream do so in the same
+    order). ``pin`` page-locks the batches (a CUDA run)."""
     (src_train_transform, base_transform, tgt_train_transform_stu,
      tgt_train_transform_tea, val_transform) = build_transforms(args)
     image_size = (args.image_size, args.image_size)
     heatmap_size = (args.heatmap_size, args.heatmap_size)
-    pin = device.type == "cuda"
 
     source_dataset = datasets.__dict__[args.source]
     train_source_dataset = source_dataset(root=args.source_root, transforms=src_train_transform,
@@ -152,6 +151,30 @@ def _train(args, device, logger):
                                         transforms=val_transform,
                                         image_size=image_size, heatmap_size=heatmap_size)
     val_target_loader = make_loader(val_target_dataset, args.test_batch, pin_memory=pin)
+    return Data(train_source_dataset, train_source_loader, val_source_loader,
+                train_target_loader, val_target_loader)
+
+
+def main(args: argparse.Namespace):
+    check_ported(args)
+    device = resolve_device(args.device)
+    logger = CompleteLogger(args.log + "_" + args.arch, args.phase)
+    try:
+        _train(args, device, logger)
+    finally:
+        logger.close()
+
+
+def _train(args, device, logger):
+    logger.write(" ".join(f"{k}={v}" for k, v in vars(args).items()))
+    if args.seed is not None:
+        random.seed(args.seed)
+        np.random.seed(args.seed)
+        torch.manual_seed(args.seed)  # the loaders' shuffles and worker seeds
+        warnings.warn("You have chosen to seed training.")
+
+    (train_source_dataset, train_source_loader, val_source_loader, train_target_loader,
+     val_target_loader) = build_data(args, pin=device.type == "cuda")
 
     logger.write("Source train: {}".format(len(train_source_loader)))
     logger.write("Target train: {}".format(len(train_target_loader)))
