@@ -45,6 +45,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             pretrain step, 0 for eval), all of its tma variant, and
             occlusion_warp once per adapt step; ms/step, img/s and peak
             memory beside phase main's.
+6b. bundled --steps-per-dispatch on both main paths (phase_bundled): the
+            step bundlers' CUDA-graph replays against unbundled steps in
+            turns at BUNDLE_N steps a bundle (ms/step, and with --profile
+            the idle share, the trace's kernel counts held against the
+            counted launches), one eager step under the sync debug mode
+            "error", the launches per replay (occlusion_warp 1 a bundled
+            adapt step, matmul_stats 210 fused, 70 a fused pretrain step),
+            each of the four gate cases' replay held against an eager step
+            (bit-equal occlusion and teacher reconstruction), and a
+            checkpoint from the bundled state resumed unbundled and bundled.
 7. trainer_engine  the port's epoch loops (engine.py) on the card with the
             models and flags of phase main, fed by in-memory RHD-shaped
             batches (bench.py's recipe, page-locked): a pretrain epoch (3
@@ -64,7 +74,8 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             at 320², make_rhd's recipe) with random style weights, at
             pose_resnet101 b=32, 3 iterations an epoch, -j min(8, cpus): a
             pretrain epoch, an adapt epoch, the adapt epoch under
-            UDA_BN_FUSE=1 (630 matmul_stats launches, all tma), --phase
+            UDA_BN_FUSE=1 (630 matmul_stats launches, all tma), a pretrain
+            and an adapt epoch with --steps-per-dispatch 4, --phase
             test --resume on phase 7's checkpoint, and a 40-iteration adapt
             epoch on the tree lengthened to 40 batches (hard links), long
             enough to drain the workers' prefetched batches; the
@@ -90,10 +101,12 @@ kernel's launches on every path), the nvidia-smi line, and the
 result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
 of the repository beside it, the script fails before printing any result.
 
-``--profile DIR`` also traces one more adapt step of each main path and one
+``--profile DIR`` also traces one more adapt step of each main path, one
+bundle and BUNDLE_N unbundled steps of each of phase bundled's paths, and one
 more adapt epoch of phase trainer_engine with torch.profiler and writes the
 per-kernel device-time tables to DIR/profile_adapt_step.json,
-DIR/profile_adapt_step_bn_fuse.json and DIR/profile_trainer_adapt_epoch.json.
+DIR/profile_adapt_step_bn_fuse.json, DIR/profile_{bundled,unbundled}_{main,
+main_bn_fuse}_4_steps.json and DIR/profile_trainer_adapt_epoch.json.
 """
 
 from __future__ import annotations
@@ -129,6 +142,8 @@ WARP_FLOPS_PER_PIXEL = 104
 MAIN_B, MAIN_K, MAIN_KV = 32, 21, 1
 # the trainer phases' model and sizes (phase main's)
 TRAINER_ARCH, MAIN_IMAGE, MAIN_HEATMAP = "pose_resnet101", 256, 64
+# steps per bundler call in phase bundled
+BUNDLE_N = 4
 # ~1 ms at the H100's ~2 GHz SM clock (see cuda_ms)
 SLEEP_CYCLES = 2_000_000
 
@@ -964,10 +979,10 @@ def phase_main(device, profile_dir, fuse_bn=False, unfused=None):
 
 def profile_adapt_step(adapt_step, out_dir, step_ms, file_name):
     """Device time by kernel and kernel group over one call of
-    ``adapt_step`` (an adapt step, or an epoch of the adapt loop;
-    torch.profiler), into ``out_dir/file_name.json``; the idle share is taken
-    against ``step_ms``, the unprofiled time of the same work, since the
-    profiler slows the host."""
+    ``adapt_step`` (an adapt step, a bundle of them, or an epoch of the
+    adapt loop; torch.profiler), into ``out_dir/file_name.json``; the idle
+    share is taken against ``step_ms``, the unprofiled time of the same
+    work, since the profiler slows the host. Returns the per-kernel rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1002,6 +1017,7 @@ def profile_adapt_step(adapt_step, out_dir, step_ms, file_name):
     with open(os.path.join(out_dir, file_name + ".json"), "w") as f:
         json.dump(dict(summary, kernels=rows), f, indent=1)
     emit(dict({"phase": "profile", "file": file_name}, **summary, top=rows[:8]))
+    return rows
 
 
 def clocked(step, stamps):
@@ -1143,6 +1159,320 @@ def _same_state(a, b):
     return (oa["param_groups"] == ob["param_groups"] and oa["state"].keys() == ob["state"].keys()
             and all(torch.equal(torch.as_tensor(v), torch.as_tensor(ob["state"][i][k]))
                     for i, entry in oa["state"].items() for k, v in entry.items()))
+
+
+def _state_rel_err(a, b):
+    """The largest difference between two modules' state dicts, tensor by
+    tensor relative to the largest magnitude of ``b``'s tensor."""
+    errs = []
+    for x, y in zip(a.state_dict().values(), b.state_dict().values()):
+        x, y = x.detach().double(), y.detach().double()
+        errs.append(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30))
+    return max(errs)
+
+
+def _deterministic():
+    """cuDNN's deterministic algorithms and no TF32: two runs of one
+    computation then agree bit for bit."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+def _held_against_eager(device, state, style, host):
+    """For each of the four (do_s2t, do_t2s) cases, from one copied state:
+    the bundler's graph replay against the unbundled eager step, under
+    deterministic cuDNN, with every keypoint taken as confident so that the
+    occlusion fires (for the samples whose gate draw passes). The occlusion gates and rectangles, the occluded
+    view (the occlusion_warp kernel's output) and the teacher's
+    reconstruction must be equal bit for bit; the losses within 1e-6
+    relative, and the updated student and teacher (parameters and BatchNorm
+    buffers) within 1e-5 of each tensor's largest magnitude. The graph runs
+    the eager step's kernels on the same inputs; what may still differ is
+    the order of the atomic additions in the backward of the heatmap warp's
+    gather, ~1e-7 of a gradient, which Adam's update (~lr = 1e-4 a
+    parameter) shrinks further."""
+    import warnings
+
+    import torch
+
+    from uda_poseestimation_torch.parallel import AdaptStepBundler, StepConfig, make_adapt_step
+
+    # every keypoint confident (occlude_thresh -1), so that the occlusion
+    # fires and the kernel's output reaches the student's view
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16",
+                     occlude_thresh=-1.0, aux_outputs=True)
+    bundler = AdaptStepBundler(cfg, style_model=style, device=device)
+    step = make_adapt_step(cfg, style_model=style, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = {}
+    with _deterministic(), warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*capturable=True")
+        for do_s2t, do_t2s in ((True, True), (True, False), (False, True), (False, False)):
+            def bundled(st):
+                return bundler(st, [host], 1e-4, [do_s2t], [0.6], [do_t2s], [0.3],
+                               generator=gen)
+
+            bundled(state)  # the case's warm-up: eager
+            twin = copy.deepcopy(state)
+            twin_gen = torch.Generator(device=device)
+            twin_gen.set_state(gen.get_state())
+            replays = bundler.replays
+            _, got, _ = bundled(state)  # captured, then replayed
+            if bundler.replays != replays + 1:
+                raise AssertionError(f"case {(do_s2t, do_t2s)}: the second call did not "
+                                     f"replay a graph")
+            _, want, _ = step(twin, host, 1e-4, do_s2t, 0.6, do_t2s, 0.3, generator=twin_gen)
+            equal = {k: bool(torch.equal(got["aux"][k][0], want["aux"][k]))
+                     for k in ("occlude", "occlusion_rect", "x_t_stu_final", "y_t_tea_recon",
+                               "tea_mask")}
+            losses = {k: abs(float(got[k][0]) - float(want[k])) / abs(float(want[k]))
+                      for k in ("loss_all", "loss_s", "loss_c")}
+            moved = {"student": _state_rel_err(state.student, twin.student),
+                     "teacher": _state_rel_err(state.teacher, twin.teacher)}
+            cases[f"{do_s2t}/{do_t2s}"] = {
+                "bit_equal": equal, "loss_rel_err": losses, "state_rel_err": moved,
+                "occluded_samples": int(got["aux"]["occlude"][0].sum())}
+            del twin
+            if (not all(equal.values()) or max(losses.values()) > 1e-6
+                    or max(moved.values()) > 1e-5):
+                raise AssertionError(f"graph replay vs eager step, case "
+                                     f"{(do_s2t, do_t2s)}: {cases[f'{do_s2t}/{do_t2s}']}")
+    if not 0 < sum(c["occluded_samples"] for c in cases.values()) < len(cases) * MAIN_B:
+        raise AssertionError(f"the occlusion must fire for some samples only: {cases}")
+    return {"cases": cases, "eager_steps": bundler.eager_steps,
+            "captures": bundler.captures, "replays": bundler.replays,
+            "launches_per_replay": {"/".join(map(str, k[:2])): v
+                                    for k, v in bundler.tallies.items()}}
+
+
+def phase_bundled(device, work_dir, profile_dir=None):
+    """--steps-per-dispatch on the card with phase main's models, flags and
+    batch (page-locked on the host, as the loader gives it), unfused and
+    fused (UDA_BN_FUSE=1), each on a state of its own beside an unbundled
+    twin: one eager adapt and pretrain step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync may remain in
+    a step that is captured); then BUNDLE_N-step bundles of AdaptStepBundler
+    (both gates on) against unbundled steps, timed in turns (unbundled,
+    bundled, bundled, unbundled) for ms/step and, with ``profile_dir``, the
+    idle share of one bundle and of BUNDLE_N unbundled steps, with the
+    trace's kernel counts held against the counted launches; the counted
+    launches (occlusion_warp once per adapt replay, matmul_stats 210 times
+    per fused adapt replay, all tma); two bundles of PretrainStepBundler
+    with mixed s2t gates (70 matmul_stats launches per fused replay).
+    Unfused only: ``_held_against_eager`` for the four gate cases, and a
+    checkpoint saved from the bundled (capturable) state, restored into a
+    fresh unbundled state, one step from each with equal losses, then a
+    bundle from the restored state. Returns each path's bundled launches."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
+    from uda_poseestimation_torch.parallel import (AdaptStepBundler, PretrainStepBundler,
+                                                   StepConfig, create_state,
+                                                   make_adapt_step, make_pretrain_step)
+    from uda_poseestimation_torch.utils.checkpoint import (load_checkpoint,
+                                                           restore_train_state,
+                                                           save_checkpoint)
+
+    t0 = time.perf_counter()
+    n = BUNDLE_N
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)
+    host = {k: torch.from_numpy(v).pin_memory()
+            for k, v in synthetic_batch(np.random.RandomState(0), MAIN_B, MAIN_KV, MAIN_IMAGE,
+                                        MAIN_HEATMAP, MAIN_K).items()}
+    pre_host = {k: host[k] for k in ("image_s", "target_s", "weight_s")}
+    pre_host["image_t_style"] = host["image_t_stu"]
+    gates = dict(do_s2t=True, alpha_s2t=0.5, do_t2s=True, alpha_t2s=0.5)
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    paths, launches_by_path = {}, {}
+    for fuse_bn in (False, True):
+        name = "main_bn_fuse" if fuse_bn else "main"
+        p0 = time.perf_counter()
+
+        def new_state(seed=0, fuse_bn=fuse_bn):
+            model = pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16, fuse_bn=fuse_bn)
+            return create_state(model, cfg, seed=seed, device=device)
+
+        state_u, state_b = new_state(), new_state()
+        step = make_adapt_step(cfg, style_model=style, device=device)
+        pre_step = make_pretrain_step(cfg, style_model=style, device=device)
+        bundler = AdaptStepBundler(cfg, style_model=style, device=device)
+        gen_u = torch.Generator(device=device).manual_seed(0)
+        gen_b = torch.Generator(device=device).manual_seed(0)
+
+        def unbundled(steps):
+            for _ in range(steps):
+                _, m, _ = step(state_u, host, 1e-4, generator=gen_u, **gates)
+            return [float(m["loss_all"])]
+
+        def bundled(bundles):
+            for _ in range(bundles):
+                _, m, _ = bundler(state_b, [host] * n, 1e-4, [True] * n, [0.5] * n,
+                                  [True] * n, [0.5] * n, generator=gen_b)
+            return m["loss_all"].tolist()
+
+        parts = {}
+
+        def part(name, since):
+            parts[name] = time.perf_counter() - since
+            return time.perf_counter()
+
+        p1 = part("setup", p0)
+        unbundled(2)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # raises at a synchronizing call
+            step(state_u, host, 1e-4, generator=gen_u, **gates)
+            pre_step(state_u, pre_host, 1e-4, do_s2t=True, alpha=0.5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        f0 = p1 = part("warm_up_and_sync_check", p1)
+        bundled(1)  # warm-up step, capture, replays
+        torch.cuda.synchronize()
+        first_bundle_s = time.perf_counter() - f0
+        if (bundler.eager_steps, bundler.captures, bundler.replays) != (1, 1, n - 1):
+            raise AssertionError(f"first bundle: {bundler.eager_steps} eager steps, "
+                                 f"{bundler.captures} captures, {bundler.replays} replays")
+
+        times, losses = {"unbundled": [], "bundled": []}, []
+        counted = {"unbundled": collections.Counter(), "bundled": collections.Counter()}
+        tma = {"unbundled": 0, "bundled": 0}
+        for kind in ("unbundled", "bundled", "bundled", "unbundled"):
+            _reset_counts()
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            losses += unbundled(n) if kind == "unbundled" else bundled(1)
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - w0) / n * 1e3)
+            counted[kind].update(_read_counts())
+            tma[kind] += matmul_stats.launches_by_variant["tma"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        per_step = {"occlusion_warp": 1, "matmul_stats": 210 * fuse_bn, "warp_gather": 0}
+        for kind, got in counted.items():
+            want = {k: 2 * n * v for k, v in per_step.items()}
+            if dict(got) != want or tma[kind] != want["matmul_stats"]:
+                raise AssertionError(f"{name} {kind}: launches {dict(got)} ({tma[kind]} tma) "
+                                     f"over {2 * n} steps, needs {want}, all tma")
+        per_replay = {k: v for k, v in per_step.items() if v}
+        if bundler.tallies != {(True, True, False): per_replay}:
+            raise AssertionError(f"{name}: launches per replay {bundler.tallies}, needs "
+                                 f"{per_replay}")
+        p1 = part("first_bundle_and_timing", p1)
+        ms = {kind: statistics.median(v) for kind, v in times.items()}
+        path = {"ms_per_step_bundled": ms["bundled"], "ms_per_step_unbundled": ms["unbundled"],
+                "ms_each": times, "bundle_steps": n, "first_bundle_s": first_bundle_s,
+                "launches_per_replay": per_replay,
+                "launches_bundled": dict(counted["bundled"]),
+                "sync_debug_error_steps": "clean: an adapt and a pretrain step"}
+
+        if profile_dir:
+            trace = {}
+            for kind, run, step_ms in (("bundled", lambda: bundled(1), ms["bundled"] * n),
+                                       ("unbundled", lambda: unbundled(n),
+                                        ms["unbundled"] * n)):
+                rows = profile_adapt_step(run, profile_dir, step_ms,
+                                          f"profile_{kind}_{name}_{n}_steps")
+                busy = sum(r["device_ms"] for r in rows)
+                seen = {"occlusion_warp": sum(r["calls"] for r in rows
+                                              if "occlusion_warp" in r["name"]),
+                        "matmul_stats": sum(r["calls"] for r in rows
+                                            if "mm_stats_wgmma" in r["name"])}
+                trace[kind] = {"idle_share": 1.0 - busy / step_ms,
+                               "device_ms_per_step": busy / n,
+                               "kernels_per_step": sum(r["calls"] for r in rows) / n,
+                               "kernels_in_trace": seen}
+                if seen != {k: n * per_step[k] for k in seen}:
+                    raise AssertionError(f"{name} {kind}: the trace shows {seen} over {n} "
+                                         f"steps, the counts {per_step} a step")
+            path["profile"] = trace
+            p1 = part("profile", p1)
+
+        pre = PretrainStepBundler(cfg, style_model=style, device=device)
+        _reset_counts()
+        pre_losses = []
+        for _ in range(2):
+            _, m, _ = pre(state_b, [pre_host] * 3, 1e-4, [True, False, True], [0.5, 0.0, 0.4])
+            pre_losses += m["loss_all"].tolist()
+        pre_want = {"occlusion_warp": 0, "matmul_stats": 6 * 70 * fuse_bn, "warp_gather": 0}
+        if ((pre.eager_steps, pre.captures, pre.replays) != (2, 2, 4)
+                or _read_counts() != pre_want or not all(np.isfinite(pre_losses))):
+            raise AssertionError(f"{name} pretrain bundles: {pre.eager_steps} eager steps, "
+                                 f"{pre.captures} captures, {pre.replays} replays, "
+                                 f"launches {_read_counts()} (needs {pre_want}), losses "
+                                 f"{pre_losses}")
+        path["pretrain"] = {"losses": pre_losses, "launches_per_replay": {
+            str(k[0]): v for k, v in pre.tallies.items()}}
+        launches_by_path[name] = dict(counted["bundled"])
+        launches_by_path[f"{name}_pretrain"] = _read_counts()
+        del pre
+        p1 = part("pretrain_bundles", p1)
+
+        if not fuse_bn:
+            path["held_against_eager"] = _held_against_eager(device, state_u, style, host)
+            p1 = part("held_against_eager", p1)
+            ckpt = os.path.join(work_dir, "bundled", "best.pth")
+            save_checkpoint(ckpt, {"student": state_b.student, "teacher": state_b.teacher,
+                                   "stu_optimizer": state_b.optimizer, "epoch": 0,
+                                   "args": {"steps_per_dispatch": n}})
+            saved = load_checkpoint(ckpt)["stu_optimizer"]
+            layout = {"capturable": sorted({g["capturable"] for g in saved["param_groups"]}),
+                      "step_devices": sorted({str(v["step"].device)
+                                              for v in saved["state"].values()})}
+            if layout != {"capturable": [False], "step_devices": ["cpu"]}:
+                raise AssertionError(f"the checkpoint's optimizer layout {layout}")
+            fresh = new_state(5)
+
+            def incompatible(line):
+                raise AssertionError(line)
+
+            restore_train_state(fresh, load_checkpoint(ckpt), load_optimizer=True,
+                                log=incompatible)
+            next_losses = []
+            with _deterministic(), warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message=".*capturable=True")
+                for st in (state_b, fresh):
+                    gen = torch.Generator(device=device).manual_seed(7)
+                    _, m, _ = step(st, host, 1e-4, generator=gen, **gates)
+                    next_losses.append([float(m[k]) for k in ("loss_all", "loss_s", "loss_c")])
+            if next_losses[0] != next_losses[1]:
+                raise AssertionError(f"one step from the saved and the restored state: "
+                                     f"losses {next_losses}")
+            resumed = AdaptStepBundler(cfg, style_model=style, device=device)
+            _, m, _ = resumed(fresh, [host] * 2, 1e-4, [True] * 2, [0.5] * 2, [True] * 2,
+                              [0.5] * 2, generator=gen_b)
+            if not bool(torch.isfinite(m["loss_all"]).all()) or resumed.replays != 1:
+                raise AssertionError(f"a bundle from the restored state: {m['loss_all']}, "
+                                     f"{resumed.replays} replays")
+            path["checkpoint"] = {"bytes": os.path.getsize(ckpt), "optimizer_layout": layout,
+                                  "next_step_losses": next_losses[0],
+                                  "next_step_losses_equal": True,
+                                  "bundle_from_restored": m["loss_all"].tolist()}
+            del fresh, resumed
+            os.remove(ckpt)
+            part("checkpoint", p1)
+        path["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        path["seconds"] = time.perf_counter() - p0
+        path["seconds_by_part"] = parts
+        paths[name] = path
+        del state_u, state_b, bundler
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "bundled", "model": "pose_resnet101", "batch": MAIN_B, "image": MAIN_IMAGE,
+          "heatmap": MAIN_HEATMAP, "k": MAIN_KV, "style": "s2t+t2s", "occlusion": True,
+          "dtype": "bf16 autocast, bf16 style", "paths": paths,
+          "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    return launches_by_path
 
 
 def phase_trainer_engine(device, work_dir, main_run, profile_dir=None):
@@ -1373,6 +1703,7 @@ def phase_trainer_cli(device, work_dir, checkpoint):
     """``train_human.main`` of the port in this process, at full width on a
     fake RHD tree with random style weights (the cwd is ``work_dir`` for the
     phase): a pretrain epoch, an adapt epoch, the same under UDA_BN_FUSE=1,
+    a pretrain and an adapt epoch with ``--steps-per-dispatch 4``,
     ``--phase test --resume`` on ``checkpoint`` (written by the port's
     save_checkpoint), and a 40-iteration adapt epoch on the tree
     lengthened to 40 batches a pass (the data pipeline's steady cost). Each
@@ -1414,6 +1745,12 @@ def phase_trainer_cli(device, work_dir, checkpoint):
              dict(none, occlusion_warp=3)),
             ("adapt_bn_fuse", ["--pretrain-epoch", "-1", "--epochs", "1"], "1",
              dict(none, occlusion_warp=3, matmul_stats=3 * (MAIN_KV + 2) * per_forward)),
+            # --steps-per-dispatch: the 3 iterations in one bundle, graph
+            # replays after each gate case's first (eager) step
+            ("pretrain_spd4", ["--pretrain-epoch", "1", "--epochs", "1",
+                               "--steps-per-dispatch", "4"], None, none),
+            ("adapt_spd4", ["--pretrain-epoch", "-1", "--epochs", "1",
+                            "--steps-per-dispatch", "4"], None, dict(none, occlusion_warp=3)),
             ("test", ["--phase", "test", "--resume", checkpoint], None, none),
             # long enough to drain the workers' prefetched batches (2 each),
             # on a tree of 40 batches a pass (the loader's next pass would
@@ -1843,9 +2180,12 @@ def main(argv=None) -> int:
                       unfused=main_run)
     gc.collect()
     torch.cuda.empty_cache()
-    # the trainer phases' files (fixture, weights, logs, checkpoints) live in a
+    # the later phases' files (fixture, weights, logs, checkpoints) live in a
     # directory of the checkout that is removed afterwards
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as work_dir:
+        bundled_launches = timed("bundled", phase_bundled, device, work_dir, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
         engine_launches, checkpoint = timed("trainer_engine", phase_trainer_engine, device,
                                             work_dir, main_run, args.profile)
         gc.collect()
@@ -1858,6 +2198,7 @@ def main(argv=None) -> int:
     # each row's launches are those of the path it lies on (warp_gather: none),
     # in all and in the last measured adapt step; then every path's own count
     by_path = {"main": main_run["launches"], "main_bn_fuse": fused_run["launches"],
+               **{f"bundled_{k}": v for k, v in bundled_launches.items()},
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()}}

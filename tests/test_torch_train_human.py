@@ -113,7 +113,7 @@ def test_script_lines_parse_alike(index):
 
 @pytest.mark.parametrize("flags,item", [
     (["--device-aug"], "A9"), (["--decode-cache", "0.5"], "A9"),
-    (["--steps-per-dispatch", "2"], "A8"), (["--dist-coordinator", "localhost:1"], "A12"),
+    (["--dist-coordinator", "localhost:1"], "A12"),
     (["--dist-num-processes", "2"], "A12"), (["--dist-process-id", "1"], "A12")])
 def test_unported_flags_raise(tmp_path, monkeypatch, flags, item):
     monkeypatch.chdir(tmp_path)

@@ -1,10 +1,11 @@
 """Trainer engine: the host loops around the port's steps.
 
 PyTorch twin of ``uda_poseestimation_tpu/engine.py`` (the reference
-implements these loops in train_human.py:244-500), one iteration per step
-call; the bundled (``--steps-per-dispatch``, ROADMAP A8) and on-device
-augmentation (``--device-aug``, A9) modes are not ported. It keeps what a
-user of the JAX engine can observe:
+implements these loops in train_human.py:244-500): one iteration per step
+call, or with ``--steps-per-dispatch n > 1`` and a bundler
+(``parallel/train_step.py``) n iterations per bundler call; the on-device
+augmentation mode (``--device-aug``, ROADMAP A9) is not ported. It keeps
+what a user of the JAX engine can observe:
 
 - the same meter names and ``ProgressMeter`` lines;
 - the host RNG draws in the reference's order: per iteration one
@@ -18,6 +19,10 @@ user of the JAX engine can observe:
 - the one-deep software pipeline: step i's metrics are read back (a device
   sync) only after step i+1 has been enqueued, so the host builds the next
   batch while the device works; validation keeps up to 3 batches in flight.
+  The bundled loops do the same over bundles: one readback per bundle, each
+  iteration's Time the bundle's divided by its steps, a trailing partial
+  bundle when n does not divide the epoch, and the same draws, target
+  advances and log lines as the loops above (they pass no debug images).
 
 Batches stay on the host until the step copies them to its device
 (``parallel/train_step.py``), asynchronously from page-locked memory, which
@@ -108,13 +113,15 @@ def _visualize_source(visualize, x_s, y_s, keypoint2d, i, args):
 
 
 def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr, args,
-                       visualize=None, style_enabled=False):
+                       visualize=None, style_enabled=False, bundler=None):
     """Source-only supervised epoch (train_human.py:244-302).
 
     ``pretrain_step(state, batch, lr, do_s2t, alpha)`` is
     ``make_pretrain_step``'s step; with ``style_enabled`` the batch carries
     the target's first teacher view as the style image when the s2t gate
-    fires, and zeros otherwise. Returns the state."""
+    fires, and zeros otherwise. With ``bundler`` (a ``PretrainStepBundler``)
+    and ``args.steps_per_dispatch > 1`` the epoch runs n iterations per
+    bundler call. Returns the state."""
     batch_time = AverageMeter("Time", ":4.2f")
     data_time = AverageMeter("Data", ":3.1f")
     losses_all = AverageMeter("Loss (all)", ":.4e")
@@ -126,7 +133,12 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
 
     gate = StyleGate(style_enabled, getattr(args, "s2t_freq", 0.0),
                      getattr(args, "s2t_alpha", (0.0, 1.0)))
-    dummy_style = None
+    n_bundle = _steps_per_dispatch(args)
+    if n_bundle > 1 and bundler is not None:
+        return _run_pretrain_epoch_bundled(
+            state, bundler, source_iter, target_iter, lr, args, gate, style_enabled,
+            n_bundle, [batch_time, data_time, losses_all, losses_s, acc_s], progress)
+    dummy_style = _DummyStyle()
     end = time.time()
     pending = None
 
@@ -148,14 +160,7 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
         do_s2t, alpha = gate.draw()
         image_t_style = None
         if style_enabled:
-            if do_s2t:
-                image_t_style = next(target_iter)[4][0]
-            else:
-                if dummy_style is None:
-                    dummy_style = torch.zeros_like(_f32(x_s))
-                    if torch.as_tensor(x_s).is_pinned():
-                        dummy_style = dummy_style.pin_memory()
-                image_t_style = dummy_style
+            image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
         batch = make_source_batch(x_s, label_s, weight_s, image_t_style)
         data_time.update(time.time() - end)
 
@@ -169,13 +174,15 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
 
 
 def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args,
-                    visualize=None, style_enabled=False):
+                    visualize=None, style_enabled=False, bundler=None):
     """Mean-teacher adaptation epoch (train_human.py:305-458).
 
     ``adapt_step(state, batch, lr, do_s2t, alpha_s2t, do_t2s, alpha_t2s,
     generator=...)`` is ``make_adapt_step``'s step; its occlusion draws come
     from one generator on the state's device, seeded per epoch from
-    ``np.random``. Returns the state."""
+    ``np.random``. With ``bundler`` (an ``AdaptStepBundler``) and
+    ``args.steps_per_dispatch > 1`` the epoch runs n iterations per bundler
+    call. Returns the state."""
     batch_time = AverageMeter("Time", ":4.2f")
     data_time = AverageMeter("Data", ":3.1f")
     losses_all = AverageMeter("Loss (all)", ":.4e")
@@ -193,6 +200,12 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
                     getattr(args, "t2s_alpha", (0.0, 1.0)))
     generator = torch.Generator(device=_device(state))
     generator.manual_seed(int(np.random.randint(0, 2 ** 31 - 1)))
+    n_bundle = _steps_per_dispatch(args)
+    if n_bundle > 1 and bundler is not None:
+        return _run_adapt_epoch_bundled(
+            state, bundler, source_iter, target_iter, lr, args, s2t, t2s, generator,
+            n_bundle, [batch_time, data_time, losses_all, losses_s, losses_c, acc_s],
+            progress)
     end = time.time()
     pending = None
 
@@ -223,6 +236,137 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
         if pending is not None:
             flush(pending)
         pending = (i, len(src[0]), metrics, y_s, src)
+    if pending is not None:
+        flush(pending)
+    return state
+
+
+def _steps_per_dispatch(args) -> int:
+    return max(1, int(getattr(args, "steps_per_dispatch", 1) or 1))
+
+
+class _DummyStyle:
+    """The zeros a pretrain batch carries as its style image when the s2t
+    gate does not fire: made once, page-locked when the source batch is."""
+
+    def __init__(self):
+        self.zeros = None
+
+    def __call__(self, x_s):
+        if self.zeros is None:
+            self.zeros = torch.zeros_like(_f32(x_s))
+            if torch.as_tensor(x_s).is_pinned():
+                self.zeros = self.zeros.pin_memory()
+        return self.zeros
+
+
+class _Readback:
+    """A bundle's stacked metrics on their way to the host: the copy is
+    queued behind the bundle when it is enqueued, so reading them waits for
+    that bundle only, not for the next one queued after it."""
+
+    def __init__(self, metrics):
+        self.metrics = {k: v.to("cpu", non_blocking=True) for k, v in metrics.items()
+                        if isinstance(v, torch.Tensor)}
+        self.done = None
+        if any(v.device.type == "cuda" for v in metrics.values()
+               if isinstance(v, torch.Tensor)):
+            self.done = torch.cuda.Event()
+            self.done.record()
+
+    def get(self) -> dict:
+        if self.done is not None:
+            self.done.synchronize()
+        return {k: v.tolist() for k, v in self.metrics.items()}
+
+
+def _bundle_flush(meters, progress, args, names):
+    """The bundled loops' flush: one readback per bundle, then each of its
+    iterations into the meters and the log, Time being the bundle's time
+    split evenly (the JAX package's bundled loops)."""
+    batch_time, _data_time, *loss_meters, acc_s = meters
+    end = [time.time()]
+
+    def flush(item):
+        base_i, n_sub, n_img, readback, _batches = item
+        m = readback.get()
+        dt = (time.time() - end[0]) / n_sub
+        for j in range(n_sub):
+            acc_s.update(float(m["acc_s"][j]), int(m["acc_cnt"][j]))
+            for meter, name in zip(loss_meters, names):
+                meter.update(float(m[name][j]), n_img)
+            batch_time.update(dt)
+            if (base_i + j) % args.print_freq == 0:
+                progress.display(base_i + j)
+        end[0] = time.time()
+
+    return flush, end
+
+
+def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, args, gate,
+                                style_enabled, n_bundle, meters, progress):
+    """n-iterations-per-call pretrain epoch (see run_pretrain_epoch). Per
+    iteration it fetches the source, draws the s2t gate and fetches a target
+    only when the gate fires, as the unbundled loop does, so both consume
+    the same streams."""
+    data_time = meters[1]
+    flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s"))
+    dummy_style = _DummyStyle()
+    pending = None
+    i = 0
+    while i < args.iters_per_epoch:
+        n_sub = min(n_bundle, args.iters_per_epoch - i)
+        batches, gates = [], []
+        for _ in range(n_sub):
+            x_s, label_s, weight_s, _meta = next(source_iter)
+            do_s2t, alpha = gate.draw()
+            image_t_style = None
+            if style_enabled:
+                image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
+            batches.append(make_source_batch(x_s, label_s, weight_s, image_t_style))
+            gates.append((do_s2t, alpha))
+        data_time.update(time.time() - end[0])
+
+        do_s2t, alphas = zip(*gates)
+        state, metrics, _ = bundler(state, batches, lr, do_s2t, alphas)
+        readback = _Readback(metrics)
+        if pending is not None:
+            flush(pending)
+        # the host batches stay alive until their bundle is read back
+        pending = (i, n_sub, len(batches[0]["image_s"]), readback, batches)
+        i += n_sub
+    if pending is not None:
+        flush(pending)
+    return state
+
+
+def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args, s2t, t2s,
+                             generator, n_bundle, meters, progress):
+    """n-iterations-per-call adaptation epoch (see run_adapt_epoch). Per
+    iteration it fetches the source and the target, then draws s2t and t2s,
+    as the unbundled loop does."""
+    data_time = meters[1]
+    flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s", "loss_c"))
+    pending = None
+    i = 0
+    while i < args.iters_per_epoch:
+        n_sub = min(n_bundle, args.iters_per_epoch - i)
+        batches, gates = [], []
+        for _ in range(n_sub):
+            src = next(source_iter)
+            tgt = next(target_iter)
+            batches.append(make_adapt_batch(src, tgt))
+            gates.append((*s2t.draw(), *t2s.draw()))
+        data_time.update(time.time() - end[0])
+
+        do_s2t, alpha_s2t, do_t2s, alpha_t2s = zip(*gates)
+        state, metrics, _ = bundler(state, batches, lr, do_s2t, alpha_s2t, do_t2s,
+                                    alpha_t2s, generator=generator)
+        readback = _Readback(metrics)
+        if pending is not None:
+            flush(pending)
+        pending = (i, n_sub, len(batches[0]["image_s"]), readback, batches)
+        i += n_sub
     if pending is not None:
         flush(pending)
     return state

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..device import device_scalar
 from ..ops.adain import adain
 from .resnet import lecun_normal_
 
@@ -94,10 +95,11 @@ class StyleNet(nn.Module):
         return self.decoder(t.to(self.dtype))
 
     def stylize(self, content, style, alpha=1.0):
-        """AdaIN transfer only (no losses); float32 out."""
+        """AdaIN transfer only (no losses); float32 out. ``alpha`` is a
+        number or a 0-d tensor (a CUDA graph's static input)."""
         style_feat = self.encode(style).float()
         content_feat = self.encode(content).float()
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=content.device)
+        alpha = device_scalar(alpha, content.device)
         t = alpha * adain(content_feat, style_feat) + (1.0 - alpha) * content_feat
         return self.decode(t).float()
 

@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import launches
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("tma", "mma_sync", "simt")
 _LAUNCH_ERRORS = {-1: "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint",
@@ -145,10 +147,20 @@ _plans: dict = {}
 def _ticket_buffer(device, stream, tiles_n):
     """The zeroed int32 tickets of the tma variant's last-block reduction,
     one buffer per device and stream (calls on one stream run in order; each
-    launch leaves its tickets zero)."""
+    launch leaves its tickets zero).
+
+    While a CUDA graph captures on ``stream``, the stream's buffer must
+    exist already: one allocated in the capture would come from the graph's
+    private memory pool and outlive it here. A graph's replays share the
+    buffer with the eager calls on its capture stream, which they never
+    overlap (run one eager call on that stream before capturing)."""
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < tiles_n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "matmul_stats: no ticket buffer for the capturing stream; run the "
+                "captured work once eagerly on that stream first")
         buf = torch.zeros(max(1024, tiles_n), dtype=torch.int32, device=device)
         _tickets[key] = buf
     return buf
@@ -212,8 +224,7 @@ def _matmul_stats_cuda(x, w_nk, out_dtype, variant=None):
     if err != 0:
         why = _LAUNCH_ERRORS.get(err, f"cudaError {err}")
         raise RuntimeError(f"matmul_stats {plan.variant} kernel launch failed: {why}")
-    matmul_stats.launches += 1
-    matmul_stats.launches_by_variant[plan.variant] += 1
+    launches.count(matmul_stats, plan.variant)
     return y, s1, s2
 
 
@@ -254,8 +265,9 @@ def matmul_stats(x, w_nk, out_dtype=None):
     Differentiable in x and w_nk.
 
     A CUDA tensor goes through the CUDA kernel (``launches`` counts each
-    call's launch, ``launches_by_variant`` the same by ``_plan``'s variant);
-    a CPU tensor through ``matmul_stats_plain``.
+    call's launch, ``launches_by_variant`` the same by ``_plan``'s variant,
+    a captured launch once per replay: ``ops/launches.py``); a CPU tensor
+    through ``matmul_stats_plain``.
     """
     _check(x, w_nk)
     return _MatmulStats.apply(x, w_nk, x.dtype if out_dtype is None else out_dtype)

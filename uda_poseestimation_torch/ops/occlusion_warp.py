@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from . import launches
 from .affine import compose_nearest_indices
 
 
@@ -118,7 +119,8 @@ def occlusion_warp(imgs, coeffs, rect, exact: bool = True):
     rect (B, 6) int32. The output has the input's memory format.
 
     A CUDA tensor goes through the CUDA kernel (``launches`` counts each
-    launch); a CPU tensor through ``occlusion_warp_plain``.
+    launch, a captured one once per replay: ``ops/launches.py``); a CPU
+    tensor through ``occlusion_warp_plain``.
     """
     _check(imgs, coeffs, rect)
     if imgs.device.type == "cpu":
@@ -147,7 +149,7 @@ def occlusion_warp(imgs, coeffs, rect, exact: bool = True):
         torch.cuda.current_stream(imgs.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"occlusion_warp kernel launch failed: cudaError {err}")
-    occlusion_warp.launches += 1
+    launches.count(occlusion_warp)
     return out
 
 

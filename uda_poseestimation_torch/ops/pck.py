@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import device_vector
 from .heatmap import get_max_preds
 
 
@@ -81,7 +82,7 @@ def keypoint_pck_accuracy(output, target, thr: float = 0.5):
     _, _, h, w = output.shape
     pred, _ = get_max_preds(output)
     tgt, _ = get_max_preds(target)
-    norm = torch.tensor([h, w], dtype=torch.float32, device=output.device) / 10.0
+    norm = device_vector((h, w), output.device) / 10.0
     valid = (tgt[..., 0] > 1) & (tgt[..., 1] > 1)  # (B, K)
     d = torch.linalg.vector_norm((pred - tgt) / norm, dim=-1)  # (B, K)
     hits = ((d < thr) & valid).sum(dim=0).to(torch.float32)

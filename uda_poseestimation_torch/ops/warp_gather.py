@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from . import launches
+
 
 def vector_path(hms, ix, iy, valid, out) -> bool:
     """Whether the kernel may read each 4 pixels' indices and mask with one
@@ -85,7 +87,8 @@ def warp_gather(hms, ix, iy, valid, exact: bool = True):
     the index lies outside the map. Returns (B, K, H, W) float32.
 
     A CUDA tensor goes through the CUDA kernel (``launches`` counts each
-    launch); a CPU tensor through ``warp_gather_plain``.
+    launch, a captured one once per replay: ``ops/launches.py``); a CPU
+    tensor through ``warp_gather_plain``.
     """
     _check(hms, ix, iy, valid)
     if hms.device.type == "cpu":
@@ -106,7 +109,7 @@ def warp_gather(hms, ix, iy, valid, exact: bool = True):
                       torch.cuda.current_stream(hms.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp_gather kernel launch failed: cudaError {err}")
-    warp_gather.launches += 1
+    launches.count(warp_gather)
     return out
 
 

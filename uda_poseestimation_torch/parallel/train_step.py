@@ -21,22 +21,30 @@ Randomness: the style gates and alphas are host values, one draw per
 iteration as in the reference. The per-sample occlusion draws come from a
 ``torch.Generator``, or are passed in as ``occlusion_draws`` so that a test
 can feed the draws ``jax.random`` makes in the JAX step.
+
+``AdaptStepBundler`` and ``PretrainStepBundler`` (``--steps-per-dispatch``)
+run n steps per call, on the card as CUDA-graph replays of the step. So the
+step may be captured: it never copies from host memory or waits for the
+device (its constants are made on the device, an alpha may be a 0-d
+tensor, a batch already on the device is used as it is).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_scalar, device_vector, resolve_device
 from ..models.ema import ema_update
 from ..models.loss import cons_loss, joints_mse_loss
 from ..models.style_net import StyleNet
 from ..ops.adain import adain
+from ..ops import launches
 from ..ops.affine import chain_coeffs, inverse_affine_coeffs, inverse_warp_heatmaps
 from ..ops.heatmap import get_max_preds, rectify
 from ..ops.occlusion_warp import occlusion_warp
@@ -151,16 +159,17 @@ def _to_device(batch: Mapping, dev: torch.device) -> dict:
     """The batch on ``dev``. Tensors are copied with ``non_blocking``: from
     page-locked memory (the loader's batches on a CUDA run) the copy is
     queued on the stream and the host goes on; from pageable memory it is a
-    plain copy."""
-    return {k: v.to(dev, non_blocking=True) if isinstance(v, torch.Tensor)
-            else torch.tensor(v, device=dev)
+    plain copy, with no wait for the device. A tensor already on ``dev``
+    (a CUDA graph's static input) is used as it is."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.tensor(v)).to(
+                dev, non_blocking=True)
             for k, v in batch.items() if v is not None}
 
 
 def _clamp_styled(x, cfg: StepConfig):
     """Clamp NCHW styled images to the per-channel normalized bounds."""
-    lo = torch.tensor(cfg.recover_min, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
-    hi = torch.tensor(cfg.recover_max, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+    lo = device_vector(cfg.recover_min, x.device, x.dtype).view(1, 3, 1, 1)
+    hi = device_vector(cfg.recover_max, x.device, x.dtype).view(1, 3, 1, 1)
     return torch.maximum(torch.minimum(x, hi), lo)
 
 
@@ -251,10 +260,10 @@ def _style_views(style_model: StyleNet, x_s, x_t_teas, do_s2t: bool, alpha_s2t,
     f_s, f_ts = f_all[:b], f_all[b:].unflatten(0, (cfg.k, b))
     targets = []
     if do_s2t:
-        a = torch.as_tensor(alpha_s2t, dtype=torch.float32, device=f_s.device)
+        a = device_scalar(alpha_s2t, f_s.device)
         targets.append(a * adain(f_s, f_ts[0]) + (1.0 - a) * f_s)
     if do_t2s:
-        a = torch.as_tensor(alpha_t2s, dtype=torch.float32, device=f_s.device)
+        a = device_scalar(alpha_t2s, f_s.device)
         targets += [a * adain(f_ts[i], f_s) + (1.0 - a) * f_ts[i]
                     for i in range(cfg.k)]
     g = _nhwc(_clamp_styled(style_model.decode(torch.cat(targets)).to(sdtype), cfg))
@@ -393,6 +402,267 @@ def make_pretrain_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
         return state, metrics, y_s
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Step bundling (--steps-per-dispatch): n steps per call
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _stack_trees(trees):
+    """Per-step output trees (dicts of tensors) -> one tree of stacked (n,
+    ...) tensors."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, Mapping):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return first
+
+
+def make_capturable(optimizer: torch.optim.Optimizer):
+    """Put Adam's step counts on the parameters' device (``capturable``), so
+    that a CUDA graph holds the whole update; SGD keeps no host state. A
+    checkpoint of either is written in the non-capturable layout
+    (``utils/checkpoint.py``)."""
+    for group in optimizer.param_groups:
+        if "capturable" in group:
+            group["capturable"] = True
+    for p, st in optimizer.state.items():
+        step = st.get("step")
+        if isinstance(step, torch.Tensor) and step.device != p.device:
+            st["step"] = step.to(device=p.device, dtype=torch.float32)
+
+
+def _fingerprint(state: UDAState) -> tuple:
+    """What a captured step holds as it was at its capture: the storage it
+    reads and writes in place (the modules' parameters and buffers, the
+    optimizer's state tensors: a checkpoint restore copies into the modules
+    but replaces the optimizer's tensors) and the optimizer's
+    hyper-parameters."""
+    tensors = [*state.student.parameters(), *state.student.buffers(),
+               *state.teacher.parameters(), *state.teacher.buffers()]
+    tensors += [v for st in state.optimizer.state.values() for v in st.values()
+                if isinstance(v, torch.Tensor)]
+    groups = tuple(tuple((k, v) for k, v in g.items() if k not in ("params", "lr"))
+                   for g in state.optimizer.param_groups)
+    return (id(state.student), id(state.teacher), id(state.optimizer), groups,
+            *(t.data_ptr() for t in tensors))
+
+
+class _StagedSteps:
+    """n calls of one step, in order, each through static inputs: the batch,
+    the alphas and the given occlusion draws are copied into buffers that
+    the step reads.
+
+    On the CPU every call runs eagerly. On the card the step of each case
+    (its style gates, and whether draws are given) runs eagerly the first
+    time, on a side stream: that call is the warm-up that makes the
+    optimizer's state, the convolutions' plans and the kernels' scratch. The
+    next call of the case captures the step into a CUDA graph on that
+    stream and replays it; every later call replays it. The graphs share one
+    memory pool (they never run at once), and each holds its static outputs.
+    A graph holds the learning rate, the occlusion generator, the
+    optimizer's hyper-parameters and the state's tensors as they were at its
+    capture, so a call with another lr or generator, or on a state whose
+    hyper-parameters changed or whose tensors moved (a checkpoint restore
+    replaces the optimizer's), drops the graphs first. Capture or replay
+    errors raise; nothing falls back to the eager step.
+
+    ``eager_steps``, ``captures`` and ``replays`` count what ran; ``tallies``
+    holds each graph's kernel launches per replay (``ops/launches.py``).
+    """
+
+    def __init__(self, step, device: DeviceLike):
+        self._step = step
+        self.device = resolve_device(device)
+        self.eager_steps = self.captures = self.replays = 0
+        self._stream = None
+        self._static = {}
+        self._key = None
+        self.reset()
+
+    def reset(self):
+        """Drop the graphs (and with them their memory) and the warm-ups."""
+        self._graphs = {}
+        self._warm = set()
+        self._pool = None
+        self.tallies = {}
+
+    def _invoke(self, state, static, lr, case, generator):
+        raise NotImplementedError
+
+    def _stage(self, name, value):
+        """Copy ``value`` (a tensor, array or number) into the static buffer
+        ``name``; a buffer of another shape or type is made anew, which drops
+        the graphs that read the old one."""
+        if not isinstance(value, torch.Tensor):
+            value = torch.tensor(value, dtype=torch.float32 if isinstance(value, float)
+                                 else None)
+        buf = self._static.get(name)
+        if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
+            buf = self._static[name] = torch.empty(value.shape, dtype=value.dtype,
+                                                   device=self.device)
+            self.reset()
+        if value.dim() == 0 and value.device.type == "cpu":
+            buf.fill_(value.item())  # a fill, not a copy from host memory
+        else:
+            buf.copy_(value, non_blocking=True)
+        return buf
+
+    def _stage_tree(self, prefix, tree):
+        return {k: self._stage(f"{prefix}/{k}", v) for k, v in tree.items() if v is not None}
+
+    def _run(self, state, lr, inputs, cases, generator=None):
+        """Run the step once per (inputs[j], cases[j]) in order; returns the
+        state, the metrics stacked (n,) and the last step's y_s."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            make_capturable(state.optimizer)
+            if (float(lr), generator, _fingerprint(state)) != self._key:
+                self.reset()
+        outs, y_s = [], None
+        for staged_inputs, case in zip(inputs, cases):
+            static = {k: (self._stage_tree(k, v) if isinstance(v, Mapping)
+                          else self._stage(k, v))
+                      for k, v in staged_inputs.items() if v is not None}
+            if not cuda:
+                _, metrics, y_s = self._invoke(state, static, lr, case, generator)
+                self.eager_steps += 1
+            elif case not in self._warm:
+                metrics, y_s = self._warm_up(state, static, lr, case, generator)
+            else:
+                if case not in self._graphs:
+                    self._capture(state, static, lr, case, generator)
+                metrics, y_s = self._replay(state, case)
+            # a graph's outputs are rewritten by its next replay
+            outs.append(_tree_map(torch.clone, metrics))
+        if cuda:  # after the run: its first step may have made the optimizer's state
+            self._key = (float(lr), generator, _fingerprint(state))
+        return state, _stack_trees(outs), y_s.clone()
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._stream
+
+    def _warm_up(self, state, static, lr, case, generator):
+        stream = self._side_stream()
+        with torch.cuda.stream(stream), warnings.catch_warnings():
+            # a capturable Adam warns when it steps outside a capture, as here
+            warnings.filterwarnings("ignore", message=".*capturable=True")
+            _, metrics, y_s = self._invoke(state, static, lr, case, generator)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._warm.add(case)
+        self.eager_steps += 1
+        return metrics, y_s
+
+    def _capture(self, state, static, lr, case, generator):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        step = state.step
+        # thread_local: the loader's pin-memory thread keeps calling CUDA
+        with launches.recording() as tally, torch.cuda.graph(
+                graph, pool=self._pool, stream=self._side_stream(),
+                capture_error_mode="thread_local"):
+            _, metrics, y_s = self._invoke(state, static, lr, case, generator)
+        state.step = step  # the capture ran nothing
+        self._graphs[case] = (graph, metrics, y_s, tally)
+        self.tallies[case] = launches.per_wrapper(tally)
+        self.captures += 1
+
+    def _replay(self, state, case):
+        graph, metrics, y_s, tally = self._graphs[case]
+        graph.replay()
+        launches.replayed(tally)
+        state.step += 1
+        self.replays += 1
+        return metrics, y_s
+
+
+def _gates(values, n, kind):
+    values = [kind(v) for v in values]
+    if len(values) != n:
+        raise ValueError(f"{n} batches but {len(values)} gate values")
+    return values
+
+
+class AdaptStepBundler(_StagedSteps):
+    """--steps-per-dispatch for the adaptation phase: n ``make_adapt_step``
+    steps per call (the JAX package's ``AdaptStepBundler``, a ``lax.scan``
+    there; ``_StagedSteps`` says how the port runs them).
+
+    ``bundler(state, batches, lr, do_s2t, alpha_s2t, do_t2s, alpha_t2s,
+    generator=None, occlusion_draws=None)``: ``batches`` is a list of n host
+    batches, each gate and alpha a sequence of n host values (one draw per
+    iteration, as in the reference), ``occlusion_draws`` None or n draw
+    dicts. Returns ``(state, metrics stacked (n,), y_s of the last step)``,
+    what n calls of the step in order give. On the card there is one graph
+    per (do_s2t, do_t2s) case met, since the style switch branches on them.
+    """
+
+    def __init__(self, cfg: StepConfig, style_model: Optional[StyleNet] = None,
+                 device: DeviceLike = None):
+        super().__init__(make_adapt_step(cfg, style_model, device), device)
+        self._style = style_model is not None
+
+    def _invoke(self, state, static, lr, case, generator):
+        do_s2t, do_t2s, drawn = case
+        return self._step(state, static["batch"], lr, do_s2t, static["alpha_s2t"],
+                          do_t2s, static["alpha_t2s"],
+                          generator=None if drawn else generator,
+                          occlusion_draws=static["draws"] if drawn else None)
+
+    def __call__(self, state: UDAState, batches, lr: float, do_s2t, alpha_s2t, do_t2s,
+                 alpha_t2s, generator: Optional[torch.Generator] = None,
+                 occlusion_draws=None):
+        n = len(batches)
+        do_s2t, do_t2s = _gates(do_s2t, n, bool), _gates(do_t2s, n, bool)
+        alpha_s2t, alpha_t2s = _gates(alpha_s2t, n, float), _gates(alpha_t2s, n, float)
+        draws = [None] * n if occlusion_draws is None else list(occlusion_draws)
+        inputs = [{"batch": b, "alpha_s2t": a_s, "alpha_t2s": a_t, "draws": d}
+                  for b, a_s, a_t, d in zip(batches, alpha_s2t, alpha_t2s, draws)]
+        cases = [(s and self._style, t and self._style, d is not None)
+                 for s, t, d in zip(do_s2t, do_t2s, draws)]
+        return self._run(state, lr, inputs, cases,
+                         None if occlusion_draws is not None else generator)
+
+
+class PretrainStepBundler(_StagedSteps):
+    """--steps-per-dispatch for the pretraining phase: n
+    ``make_pretrain_step`` steps per call (the JAX package's
+    ``PretrainStepBundler``), as ``AdaptStepBundler`` runs adapt steps.
+
+    ``bundler(state, batches, lr, do_s2t, alphas)``; a batch whose s2t gate
+    did not fire carries zeros as its style image when style is on, as the
+    engine gives it. On the card there is one graph per do_s2t case met.
+    """
+
+    def __init__(self, cfg: StepConfig, style_model: Optional[StyleNet] = None,
+                 device: DeviceLike = None):
+        super().__init__(make_pretrain_step(cfg, style_model, device), device)
+        self._style = style_model is not None
+
+    def _invoke(self, state, static, lr, case, generator):
+        (do_s2t,) = case
+        return self._step(state, static["batch"], lr, do_s2t, static["alpha"])
+
+    def __call__(self, state: UDAState, batches, lr: float, do_s2t, alphas):
+        n = len(batches)
+        do_s2t, alphas = _gates(do_s2t, n, bool), _gates(alphas, n, float)
+        inputs = [{"batch": b, "alpha": a} for b, a in zip(batches, alphas)]
+        return self._run(state, lr, inputs, [(d and self._style,) for d in do_s2t])
 
 
 def make_eval_step(device: DeviceLike = None):

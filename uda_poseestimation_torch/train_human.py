@@ -9,9 +9,14 @@ pretraining for ``--pretrain-epoch`` epochs, then mean-teacher adaptation
 from the best pretrained student. It runs the port's steps on one device,
 the CUDA card unless ``--device`` asks for another (``--device cpu``).
 
+``--steps-per-dispatch n`` runs n iterations per bundler call in both
+phases (``AdaptStepBundler``, ``PretrainStepBundler``): CUDA-graph replays of
+the step on the card, the same step run eagerly on the CPU; the first step
+of each style-gate case in an epoch runs eagerly on the card too.
+
 Not ported yet, and refused at start with the ROADMAP item that brings
-them: ``--device-aug`` and ``--decode-cache`` (A9), ``--steps-per-dispatch``
-above 1 (A8), the ``--dist-*`` multi-process flags (A12). Datasets: every
+them: ``--device-aug`` and ``--decode-cache`` (A9), the ``--dist-*``
+multi-process flags (A12). Datasets: every
 human dataset of the JAX registry (``data/__init__.py``), so the four
 ``train_human.py`` lines of ``script`` (f2r, s2h, s2l, r2h) run.
 
@@ -38,8 +43,8 @@ from .data import transforms as T
 from .device import resolve_device
 from .engine import run_adapt_epoch, run_pretrain_epoch, run_validate
 from .models import StyleNet
-from .parallel import StepConfig, create_state, make_adapt_step, make_eval_step, \
-    make_pretrain_step
+from .parallel import AdaptStepBundler, PretrainStepBundler, StepConfig, create_state, \
+    make_adapt_step, make_eval_step, make_pretrain_step
 from .utils import CompleteLogger, multistep_lr
 from .utils.checkpoint import load_checkpoint, restore_train_state, save_checkpoint
 from .weights import load_style_net_files
@@ -96,7 +101,6 @@ def check_ported(args):
     unported = [
         (args.device_aug, "--device-aug", "A9"),
         (args.decode_cache > 0, "--decode-cache > 0", "A9"),
-        (args.steps_per_dispatch > 1, "--steps-per-dispatch > 1", "A8"),
         (args.dist_coordinator is not None, "--dist-coordinator", "A12"),
         (args.dist_num_processes != 1, "--dist-num-processes != 1", "A12"),
         (args.dist_process_id != 0, "--dist-process-id != 0", "A12"),
@@ -207,14 +211,26 @@ def _train(args, device, logger):
     pretrain_step = make_pretrain_step(cfg, style_model=style_model, device=device)
     adapt_step = make_adapt_step(cfg, style_model=style_model, device=device)
     eval_step = make_eval_step(device=device)
+    bundlers = {}
+    if args.steps_per_dispatch > 1:
+        bundlers = {"pretrain": PretrainStepBundler(cfg, style_model=style_model, device=device),
+                    "adapt": AdaptStepBundler(cfg, style_model=style_model, device=device)}
+        if args.debug:
+            warnings.warn("--steps-per-dispatch: --debug prediction images "
+                          "are skipped during bundled epochs")
+
+    def restore(checkpoint, **kwargs):
+        restore_train_state(state, checkpoint, **kwargs)
+        for bundler in bundlers.values():  # their graphs hold the old tensors
+            bundler.reset()
 
     start_epoch = 0
     if args.resume:
         checkpoint = load_checkpoint(args.resume)
-        restore_train_state(state, checkpoint, load_optimizer=True, log=logger.write)
+        restore(checkpoint, load_optimizer=True, log=logger.write)
         start_epoch = int(checkpoint.get("epoch", -1)) + 1
     elif args.pretrain:
-        restore_train_state(state, load_checkpoint(args.pretrain), teacher_source="student")
+        restore(load_checkpoint(args.pretrain), teacher_source="student")
 
     def visualize(image, keypoint2d, name):
         denorm = np.asarray(image) * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)
@@ -241,16 +257,15 @@ def _train(args, device, logger):
             state = run_pretrain_epoch(
                 state, pretrain_step, train_source_iter, train_target_iter, epoch, lr,
                 args, visualize if args.debug else None,
-                style_enabled=style_model is not None)
+                style_enabled=style_model is not None, bundler=bundlers.get("pretrain"))
         else:
             if epoch == args.pretrain_epoch:
-                restore_train_state(
-                    state, load_checkpoint(logger.get_checkpoint_path("best_pt")),
-                    teacher_source="student")
+                restore(load_checkpoint(logger.get_checkpoint_path("best_pt")),
+                        teacher_source="student")
             state = run_adapt_epoch(
                 state, adapt_step, train_source_iter, train_target_iter, epoch, lr, args,
                 visualize if args.debug else None,
-                style_enabled=style_model is not None)
+                style_enabled=style_model is not None, bundler=bundlers.get("adapt"))
 
         eval_model = state.student if epoch < args.pretrain_epoch else state.teacher
         source_val_acc = run_validate(eval_step, eval_model, val_source_loader, args)
@@ -383,8 +398,8 @@ def build_parser():
                         help="GB of decoded-canvas cache (not ported: ROADMAP A9); "
                              "0 disables")
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
-                        help="iterations fused per dispatch (not ported: ROADMAP A8); "
-                             "1 disables")
+                        help="iterations per bundler call (CUDA-graph replays on "
+                             "the card); 1 disables")
     parser.add_argument("--dist-coordinator", type=str, default=None,
                         help="multi-process data parallelism (not ported: ROADMAP A12)")
     parser.add_argument("--dist-num-processes", type=int, default=1,

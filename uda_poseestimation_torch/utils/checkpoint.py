@@ -5,7 +5,8 @@ args}`` as ``best_pt.pth`` / ``best.pth`` when the target's 'all' PCK
 improves (train_human.py:226-237), with the student and teacher as
 DataParallel (``module.``-prefixed) state dicts. ``save_checkpoint`` writes
 that layout with ``torch.save``, plus a ``format`` tag; the optimizer entry
-is the torch optimizer's ``state_dict()``.
+is the torch optimizer's ``state_dict()``, in a non-capturable optimizer's
+layout whatever the optimizer (``_reference_layout``).
 
 ``load_checkpoint`` reads the port's files, the JAX package's (whose
 student and teacher are the same ``module.`` state dicts, written by
@@ -45,6 +46,18 @@ def _cpu(obj):
     return obj
 
 
+def _reference_layout(opt_sd: Dict[str, Any]) -> Dict[str, Any]:
+    """An optimizer state dict as a non-capturable optimizer writes it: a
+    bundled step's Adam on the card is ``capturable`` (its step counts live
+    on the device; ``parallel.make_capturable``), which the file does not
+    record, so it resumes into the unbundled path and the CPU as well. The
+    step counts are on the CPU already (``_cpu``)."""
+    for group in opt_sd.get("param_groups", ()):
+        if group.get("capturable"):
+            group["capturable"] = False
+    return opt_sd
+
+
 def save_checkpoint(path: str, payload: Dict[str, Any]):
     """``torch.save`` a checkpoint dict in the reference's layout.
 
@@ -60,7 +73,7 @@ def save_checkpoint(path: str, payload: Dict[str, Any]):
             payload[key] = {_PREFIX + k: _cpu(v) for k, v in sd.items()}
     opt = payload.get("stu_optimizer")
     if isinstance(opt, torch.optim.Optimizer):
-        payload["stu_optimizer"] = _cpu(opt.state_dict())
+        payload["stu_optimizer"] = _reference_layout(_cpu(opt.state_dict()))
     if isinstance(payload.get("args"), argparse.Namespace):
         payload["args"] = dict(vars(payload["args"]))
     payload["format"] = FORMAT_TAG
