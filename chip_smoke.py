@@ -55,6 +55,25 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             each of the four gate cases' replay held against an eager step
             (bit-equal occlusion and teacher reconstruction), and a
             checkpoint from the bundled state resumed unbundled and bundled.
+6c. device_aug  --device-aug and --decode-cache (phase_device_aug): the
+            view builders on the card against the CPU on one b=32 batch of
+            256² uint8 canvases from the same uniforms (crop decisions,
+            rounded translations, warp indices and target weights equal;
+            views within 1e-4 normalized at all but 0.1% of their values);
+            the device-aug adapt step, unbundled and bundled, timed in turns
+            beside phase main's step (ms/step, host-to-device bytes per
+            iteration, the view builder's time, peak memory, occlusion_warp
+            once per step and replay; with --profile the idle share and the
+            view builder's device time), an eager device-aug adapt and
+            pretrain step under the sync debug mode "error"; every gate
+            case's replay against the eager step, adapt and pretrain; and the
+            CLI on a fake RHD tree of DA_FRAMES frames: DA_ITERS adapt
+            iterations with --device-aug --decode-cache 1 at -j 8 and -j 2,
+            unbundled and --steps-per-dispatch 4, the same bundled with host
+            augmentation, and a --device-aug pretrain epoch with s2t fired
+            (Time and Data medians per pass, first-batch wait, the cache's
+            counts, which must show every second-pass fetch a hit, and the
+            parent's and workers' RSS).
 7. trainer_engine  the port's epoch loops (engine.py) on the card with the
             models and flags of phase main, fed by in-memory RHD-shaped
             batches (bench.py's recipe, page-locked): a pretrain epoch (3
@@ -102,11 +121,13 @@ result line {"ok": true, "device": {...}}. Without CUDA, or without the rest
 of the repository beside it, the script fails before printing any result.
 
 ``--profile DIR`` also traces one more adapt step of each main path, one
-bundle and BUNDLE_N unbundled steps of each of phase bundled's paths, and one
+bundle and BUNDLE_N unbundled steps of each of phase bundled's paths and of
+phase device_aug's (and its view builder alone), and one
 more adapt epoch of phase trainer_engine with torch.profiler and writes the
 per-kernel device-time tables to DIR/profile_adapt_step.json,
 DIR/profile_adapt_step_bn_fuse.json, DIR/profile_{bundled,unbundled}_{main,
-main_bn_fuse}_4_steps.json and DIR/profile_trainer_adapt_epoch.json.
+main_bn_fuse}_4_steps.json, DIR/profile_device_aug_{bundled,unbundled}_4_steps.json,
+DIR/profile_device_aug_view_builder.json and DIR/profile_trainer_adapt_epoch.json.
 """
 
 from __future__ import annotations
@@ -1180,7 +1201,7 @@ def _deterministic():
                                       allow_tf32=False)
 
 
-def _held_against_eager(device, state, style, host):
+def _held_against_eager(device, state, style, host, view_builder=None, sync_check=False):
     """For each of the four (do_s2t, do_t2s) cases, from one copied state:
     the bundler's graph replay against the unbundled eager step, under
     deterministic cuDNN, with every keypoint taken as confident so that the
@@ -1192,7 +1213,10 @@ def _held_against_eager(device, state, style, host):
     the eager step's kernels on the same inputs; what may still differ is
     the order of the atomic additions in the backward of the heatmap warp's
     gather, ~1e-7 of a gradient, which Adam's update (~lr = 1e-4 a
-    parameter) shrinks further."""
+    parameter) shrinks further. With ``view_builder`` (--device-aug) ``host``
+    is a raw batch and both build their views from the generator, before
+    the occlusion draws; with ``sync_check`` the eager steps run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     import warnings
 
     import torch
@@ -1203,8 +1227,9 @@ def _held_against_eager(device, state, style, host):
     # fires and the kernel's output reaches the student's view
     cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16",
                      occlude_thresh=-1.0, aux_outputs=True)
-    bundler = AdaptStepBundler(cfg, style_model=style, device=device)
-    step = make_adapt_step(cfg, style_model=style, device=device)
+    bundler = AdaptStepBundler(cfg, style_model=style, device=device,
+                               view_builder=view_builder)
+    step = make_adapt_step(cfg, style_model=style, device=device, view_builder=view_builder)
     gen = torch.Generator(device=device).manual_seed(5)
     cases = {}
     with _deterministic(), warnings.catch_warnings():
@@ -1223,7 +1248,9 @@ def _held_against_eager(device, state, style, host):
             if bundler.replays != replays + 1:
                 raise AssertionError(f"case {(do_s2t, do_t2s)}: the second call did not "
                                      f"replay a graph")
-            _, want, _ = step(twin, host, 1e-4, do_s2t, 0.6, do_t2s, 0.3, generator=twin_gen)
+            with _sync_debug(sync_check):
+                _, want, _ = step(twin, host, 1e-4, do_s2t, 0.6, do_t2s, 0.3,
+                                  generator=twin_gen)
             equal = {k: bool(torch.equal(got["aux"][k][0], want["aux"][k]))
                      for k in ("occlude", "occlusion_rect", "x_t_stu_final", "y_t_tea_recon",
                                "tea_mask")}
@@ -1245,6 +1272,23 @@ def _held_against_eager(device, state, style, host):
             "captures": bundler.captures, "replays": bundler.replays,
             "launches_per_replay": {"/".join(map(str, k[:2])): v
                                     for k, v in bundler.tallies.items()}}
+
+
+@contextlib.contextmanager
+def _sync_debug(on=True):
+    """``torch.cuda.set_sync_debug_mode("error")`` inside (when ``on``): a
+    host sync raises, as it would break a capture."""
+    import torch
+
+    if not on:
+        yield
+        return
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def phase_bundled(device, work_dir, profile_dir=None):
@@ -1475,6 +1519,458 @@ def phase_bundled(device, work_dir, profile_dir=None):
     return launches_by_path
 
 
+# the fake RHD tree of phase device_aug's CLI runs: 20 batches a pass, so
+# that 40 iterations read each training set twice and the second pass shows
+# the decoded-canvas cache
+DA_FRAMES = 20 * MAIN_B
+DA_ITERS = 40
+# phase device_aug's CLI runs: (name, workers (None: min(8, cpus)), flags)
+DA_CLI_RUNS = (
+    ("device_aug_j8", None, ["--device-aug", "--decode-cache", "1"]),
+    ("device_aug_j8_spd4", None, ["--device-aug", "--decode-cache", "1",
+                                  "--steps-per-dispatch", "4"]),
+    ("device_aug_j2", 2, ["--device-aug", "--decode-cache", "1"]),
+    ("device_aug_j2_spd4", 2, ["--device-aug", "--decode-cache", "1",
+                               "--steps-per-dispatch", "4"]),
+    ("host_aug_j8_spd4", None, ["--steps-per-dispatch", "4"]),
+    ("host_aug_j2_spd4", 2, ["--steps-per-dispatch", "4"]),
+)
+
+
+def raw_canvas_batch(rng, b, size, num_kpts):
+    """A raw --device-aug batch as ``DeviceAugPipeline.raw_adapt_batch``
+    gives it from the loaders: uint8 canvases, keypoints on them and their
+    visibility, for the source and the target, page-locked."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for side in ("s", "t"):
+        out["canvas_" + side] = rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)
+        out["kp_" + side] = rng.uniform(20 * size / 256, 230 * size / 256,
+                                        (b, num_kpts, 2)).astype(np.float32)
+        out["vis_" + side] = (rng.rand(b, num_kpts) > 0.1).astype(np.float32)
+    return {k: torch.from_numpy(v).pin_memory() for k, v in out.items()}
+
+
+def _mostly_close(got, want, atol, share=1e-3):
+    """The share of values off by more than ``atol``, and whether it is at
+    most ``share`` (a nearest warp whose coefficients differ by an ulp may
+    move a pixel that sits on a rounding boundary)."""
+    off = float(((got.detach().cpu().double() - want.detach().cpu().double()).abs()
+                 > atol).double().mean())
+    return off, off <= share
+
+
+def _views_card_vs_cpu(device, pipe, cpu_pipe, raw_host):
+    """The view builders on the card against the CPU on one raw batch, from
+    the same uniforms: the crop decisions and rounded translations equal,
+    the nearest warp's indices equal on the same coefficients (an index
+    image warped on both), the target weights equal, the views within 1e-4
+    (normalized: 1e-5 of the [0, 1] image times 1/std) at all but 0.1% of
+    their values, the targets within 1e-5 of their peak."""
+    import torch
+
+    from uda_poseestimation_torch.ops.affine import inverse_affine_coeffs, warp_affine
+    from uda_poseestimation_torch.ops.device_aug import (rrc_from_uniforms, view_fields,
+                                                         view_from_uniforms)
+
+    src, stu, tea = pipe.cfg_src, pipe.cfg_stu, pipe.cfg_tea
+    size = raw_host["canvas_s"].shape[1]
+    g = torch.Generator().manual_seed(3)
+    u = {"source": torch.rand((1, MAIN_B, view_fields(src)), generator=g),
+         "base": torch.rand((MAIN_B, 12), generator=g),
+         "student": torch.rand((1, MAIN_B, view_fields(stu)), generator=g),
+         "teacher": torch.rand((MAIN_KV, MAIN_B, view_fields(tea)), generator=g)}
+
+    def draws_on(dev):
+        return {"source": view_from_uniforms(src, u["source"].to(dev), size),
+                "target": {"base": rrc_from_uniforms(src, u["base"].to(dev), size),
+                           "student": view_from_uniforms(stu, u["student"].to(dev), size),
+                           "teacher": view_from_uniforms(tea, u["teacher"].to(dev), size)}}
+
+    d_cpu, d_dev = draws_on("cpu"), draws_on(device)
+    integer = {}
+    for where, view in (("source", ("source",)), ("base", ("target", "base")),
+                        ("student", ("target", "student")),
+                        ("teacher", ("target", "teacher"))):
+        a, b = d_cpu, d_dev
+        for key in view:
+            a, b = a[key], b[key]
+        for name in ("i", "j", "side", "trans_x", "trans_y"):
+            if name in a:
+                integer[f"{where}/{name}"] = bool(torch.equal(a[name], b[name].cpu()))
+    ds = d_cpu["source"]
+    coeffs = inverse_affine_coeffs(*(ds[n][0] for n in ("angle", "trans_x", "trans_y",
+                                                        "shear_x")),
+                                   torch.zeros(MAIN_B), ds["scale"][0])
+    index = torch.arange(size * size, dtype=torch.float32).view(1, 1, size, size)
+    index = index.expand(MAIN_B, 1, size, size).contiguous()
+    integer["warp_indices"] = bool(torch.equal(
+        warp_affine(index, coeffs), warp_affine(index.to(device), coeffs.to(device)).cpu()))
+    raw_cpu = {k: v for k, v in raw_host.items()}
+    raw_dev = {k: v.to(device) for k, v in raw_host.items()}
+    got = pipe.view_builder(raw_dev, draws=d_dev)
+    want = cpu_pipe.view_builder(raw_cpu, draws=d_cpu)
+    integer["weight_s"] = bool(torch.equal(got["weight_s"].cpu(), want["weight_s"]))
+    floats = {}
+    for name in ("image_s", "image_t_stu", "images_t_tea"):
+        floats[name] = _mostly_close(got[name], want[name], 1e-4)
+    for name in ("aug_param_stu", "aug_params_tea"):
+        floats[name] = _mostly_close(got[name], want[name], 1e-5 * 180, share=0.0)
+    peak = float(want["target_s"].abs().max())
+    floats["target_s"] = _mostly_close(got["target_s"], want["target_s"], 1e-5 * peak,
+                                       share=0.0)
+    build_dev = pipe.pretrain_view_builder(True)(raw_dev, True, draws=d_dev)
+    build_cpu = cpu_pipe.pretrain_view_builder(True)(raw_cpu, True, draws=d_cpu)
+    for name in ("image_s", "image_t_style"):
+        floats["pretrain/" + name] = _mostly_close(build_dev[name], build_cpu[name], 1e-4)
+    layout = {"image_t_stu_contiguous_nhwc": bool(got["image_t_stu"].is_contiguous()),
+              "kernel_view_channels_last": bool(got["image_t_stu"].permute(0, 3, 1, 2)
+                                                .is_contiguous(
+                                                    memory_format=torch.channels_last))}
+    result = {"integer_equal": integer,
+              "off_share": {k: v[0] for k, v in floats.items()}, "layout": layout,
+              "fired_crops": int((d_cpu["source"]["side"] < size).sum())}
+    if not (all(integer.values()) and all(v[1] for v in floats.values())
+            and all(layout.values())):
+        raise AssertionError(f"views on the card against the CPU: {result}")
+    return result, raw_dev
+
+
+def _pretrain_held_against_eager(device, state, style, build, raw):
+    """Each do_s2t case of the pretrain bundler with the pretrain view
+    builder: its graph replay against the eager step (under the sync debug
+    mode "error") from one copied state and generator, under deterministic
+    cuDNN: the losses and accuracy equal bit for bit, the updated student
+    within 1e-5 of each tensor's largest magnitude."""
+    import warnings
+
+    import torch
+
+    from uda_poseestimation_torch.parallel import (PretrainStepBundler, StepConfig,
+                                                   make_pretrain_step)
+
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    bundler = PretrainStepBundler(cfg, style_model=style, device=device, view_builder=build)
+    step = make_pretrain_step(cfg, style_model=style, device=device, view_builder=build)
+    gen = torch.Generator(device=device).manual_seed(6)
+    cases = {}
+    with _deterministic(), warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*capturable=True")
+        for do_s2t in (True, False):
+            bundler(state, [raw], 1e-4, [do_s2t], [0.6], generator=gen)  # warm-up: eager
+            twin = copy.deepcopy(state)
+            twin_gen = torch.Generator(device=device)
+            twin_gen.set_state(gen.get_state())
+            replays = bundler.replays
+            _, got, _ = bundler(state, [raw], 1e-4, [do_s2t], [0.6], generator=gen)
+            if bundler.replays != replays + 1:
+                raise AssertionError(f"pretrain case {do_s2t}: no replay")
+            with _sync_debug():
+                _, want, _ = step(twin, raw, 1e-4, do_s2t, 0.6, generator=twin_gen)
+            equal = {k: bool(torch.equal(got[k][0], want[k]))
+                     for k in ("loss_all", "acc_s", "acc_cnt")}
+            moved = _state_rel_err(state.student, twin.student)
+            cases[str(do_s2t)] = {"bit_equal": equal, "student_rel_err": moved}
+            del twin
+            if not all(equal.values()) or moved > 1e-5:
+                raise AssertionError(f"pretrain replay vs eager, case {do_s2t}: "
+                                     f"{cases[str(do_s2t)]}")
+    return {"cases": cases, "eager_steps": bundler.eager_steps,
+            "captures": bundler.captures, "replays": bundler.replays}
+
+
+def _children_rss_kb():
+    """The resident kB of each of this process's child processes (the
+    loader workers), from ``/proc/<pid>/statm``."""
+    import multiprocessing
+
+    page = os.sysconf("SC_PAGE_SIZE") // 1024
+    out = []
+    for child in multiprocessing.active_children():
+        try:
+            with open(f"/proc/{child.pid}/statm") as f:
+                fields = f.read().split()
+        except OSError:
+            continue
+        out.append(int(fields[1]) * page)
+    return out
+
+
+def phase_device_aug(device, work_dir, profile_dir=None):
+    """--device-aug and --decode-cache on the card at full width (phase
+    main's models and flags): (1) the view builders on the card against the
+    CPU (``_views_card_vs_cpu``); (2) the device-aug adapt step, unbundled
+    and in BUNDLE_N-step bundles, timed in turns beside phase main's step on
+    its host-augmented batch (both in this call), an eager device-aug adapt
+    and pretrain step under the sync debug mode "error", occlusion_warp once
+    per step and per replay, the bytes each iteration copies to the card,
+    the view builder's time, the peak memory and, with ``profile_dir``, the
+    idle share and the view builder's device time; (3) every gate case's
+    replay against the eager step, adapt (``_held_against_eager``) and
+    pretrain (``_pretrain_held_against_eager``); (4) the CLI on a fake RHD
+    tree of DA_FRAMES frames: DA_ITERS adapt iterations with --device-aug
+    --decode-cache 1 at -j 8 and -j 2, unbundled and with
+    --steps-per-dispatch 4, the same bundled with host augmentation, and a
+    --device-aug pretrain epoch with s2t fired: Time and Data medians per
+    pass, the first batch's wait, the cache's counts and the parent's and
+    workers' RSS. Returns the launches of each path."""
+    import multiprocessing
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch import train_human
+    from uda_poseestimation_torch.engine import DeviceAugPipeline
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.ops.device_aug import DeviceAugConfig
+    from uda_poseestimation_torch.parallel import (AdaptStepBundler, StepConfig, create_state,
+                                                   make_adapt_step, make_pretrain_step)
+
+    t0 = time.perf_counter()
+    parts, launches_by_path = {}, {}
+
+    def part(name, since):
+        parts[name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    mean, std = train_human.IMAGENET_MEAN, train_human.IMAGENET_STD
+    cfgs = (DeviceAugConfig(use_rrc=True), DeviceAugConfig(use_rrc=False),
+            DeviceAugConfig(use_rrc=False))
+    pipe = DeviceAugPipeline(*cfgs, k=MAIN_KV, mean=mean, std=std, seed=0, device=device)
+    cpu_pipe = DeviceAugPipeline(*cfgs, k=MAIN_KV, mean=mean, std=std, seed=0, device="cpu")
+    raw = raw_canvas_batch(np.random.RandomState(0), MAIN_B, MAIN_IMAGE, MAIN_K)
+    views, raw_dev = _views_card_vs_cpu(device, pipe, cpu_pipe, raw)
+    views["builder_ms"] = cuda_ms(lambda: pipe.view_builder(raw_dev), 10)
+    p1 = part("views_card_vs_cpu", t0)
+
+    # (2) the device-aug adapt step beside phase main's
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    host = {k: torch.from_numpy(v).pin_memory()
+            for k, v in synthetic_batch(np.random.RandomState(0), MAIN_B, MAIN_KV, MAIN_IMAGE,
+                                        MAIN_HEATMAP, MAIN_K).items()}
+    gates = dict(do_s2t=True, alpha_s2t=0.5, do_t2s=True, alpha_t2s=0.5)
+    n = BUNDLE_N
+    torch.cuda.reset_peak_memory_stats(device)
+    paths = {}
+    for name, builder, batch in (("main", None, host), ("device_aug", pipe.view_builder, raw)):
+        def new_state():
+            return create_state(pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16),
+                                cfg, seed=0, device=device)
+
+        paths[name] = {
+            "batch": batch, "state_u": new_state(), "state_b": new_state(),
+            "step": make_adapt_step(cfg, style_model=style, device=device,
+                                    view_builder=builder),
+            "bundler": AdaptStepBundler(cfg, style_model=style, device=device,
+                                        view_builder=builder),
+            "gen_u": torch.Generator(device=device).manual_seed(0),
+            "gen_b": torch.Generator(device=device).manual_seed(0)}
+
+    def unbundled(p, steps):
+        for _ in range(steps):
+            _, m, _ = p["step"](p["state_u"], p["batch"], 1e-4, generator=p["gen_u"], **gates)
+        return [float(m["loss_all"])]
+
+    def bundled(p, bundles):
+        for _ in range(bundles):
+            _, m, _ = p["bundler"](p["state_b"], [p["batch"]] * n, 1e-4, [True] * n,
+                                   [0.5] * n, [True] * n, [0.5] * n, generator=p["gen_b"])
+        return m["loss_all"].tolist()
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*capturable=True")
+        for p in paths.values():
+            unbundled(p, 2)  # warm-up
+            bundled(p, 1)  # warm-up step, capture, replays
+        torch.cuda.synchronize()
+        da = paths["device_aug"]
+        pre_build = pipe.pretrain_view_builder(True)
+        pre_step = make_pretrain_step(cfg, style_model=style, device=device,
+                                      view_builder=pre_build)
+        with _sync_debug():  # raises at a synchronizing call
+            da["step"](da["state_u"], raw, 1e-4, generator=da["gen_u"], **gates)
+            pre_step(da["state_u"], raw, 1e-4, True, 0.5, generator=pipe.generator)
+        torch.cuda.synchronize()
+        p1 = part("step_warm_up_and_sync_check", p1)
+        times = {f"{name}_{kind}": [] for name in paths for kind in ("unbundled", "bundled")}
+        counted = {k: collections.Counter() for k in times}
+        losses = []
+        for name, kind in (("main", "unbundled"), ("device_aug", "unbundled"),
+                           ("device_aug", "bundled"), ("main", "bundled"),
+                           ("main", "bundled"), ("device_aug", "bundled"),
+                           ("device_aug", "unbundled"), ("main", "unbundled")):
+            _reset_counts()
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            losses += (unbundled(paths[name], n) if kind == "unbundled"
+                       else bundled(paths[name], 1))
+            torch.cuda.synchronize()
+            times[f"{name}_{kind}"].append((time.perf_counter() - w0) / n * 1e3)
+            counted[f"{name}_{kind}"].update(_read_counts())
+        peak = torch.cuda.max_memory_allocated(device)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"device_aug: non-finite losses {losses}")
+        want = {"occlusion_warp": 2 * n, "matmul_stats": 0, "warp_gather": 0}
+        tallies = da["bundler"].tallies
+        if (any(dict(c) != want for c in counted.values())
+                or tallies != {(True, True, False): {"occlusion_warp": 1}}):
+            raise AssertionError(f"device_aug launches {counted} over {2 * n} steps each "
+                                 f"(needs {want}), per replay {tallies}")
+        launches_by_path["unbundled"] = dict(counted["device_aug_unbundled"])
+        launches_by_path["bundled"] = dict(counted["device_aug_bundled"])
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        h2d = {name: sum(t.numel() * t.element_size() for t in p["batch"].values())
+               for name, p in paths.items()}
+        step_result = {"ms_per_step": ms, "ms_each": times, "bundle_steps": n,
+                       "h2d_bytes_per_iteration": h2d, "max_memory_allocated": peak,
+                       "launches_per_replay": tallies[(True, True, False)],
+                       "launches": launches_by_path,
+                       "sync_debug_error_steps": "clean: an adapt and a pretrain step"}
+        p1 = part("step_timing", p1)
+        if profile_dir:
+            trace = {}
+            for kind, run, step_ms in (
+                    ("bundled", lambda: bundled(da, 1), ms["device_aug_bundled"] * n),
+                    ("unbundled", lambda: unbundled(da, n), ms["device_aug_unbundled"] * n)):
+                rows = profile_adapt_step(run, profile_dir, step_ms,
+                                          f"profile_device_aug_{kind}_{n}_steps")
+                busy = sum(r["device_ms"] for r in rows)
+                trace[kind] = {"idle_share": 1.0 - busy / step_ms,
+                               "device_ms_per_step": busy / n}
+            rows = profile_adapt_step(lambda: pipe.view_builder(raw_dev), profile_dir,
+                                      views["builder_ms"], "profile_device_aug_view_builder")
+            trace["view_builder_device_ms"] = sum(r["device_ms"] for r in rows)
+            trace["view_builder_kernels"] = sum(r["calls"] for r in rows)
+            step_result["profile"] = trace
+            p1 = part("profile", p1)
+
+        # (3) replays against eager steps
+        held = {"adapt": _held_against_eager(device, da["state_u"], style, raw,
+                                             view_builder=pipe.view_builder, sync_check=True),
+                "pretrain": _pretrain_held_against_eager(device, da["state_u"], style,
+                                                         pre_build, raw)}
+        p1 = part("held_against_eager", p1)
+    del paths, da
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the CLI
+    root = os.path.join(work_dir, "rhd_device_aug")
+    write_fake_rhd(root)
+    usable_fake_rhd(root, DA_FRAMES)
+    write_style_weights(work_dir)
+    workers8 = min(8, os.cpu_count() or 1)
+    common = [root, root, "-s", "RenderedHandPose", "-t", "RenderedHandPose",
+              "--target-train", "RenderedHandPose_mt", "-a", TRAINER_ARCH, "-b", str(MAIN_B),
+              "--test-batch", str(MAIN_B), "--image-size", str(MAIN_IMAGE),
+              "--heatmap-size", str(MAIN_HEATMAP), "--k", str(MAIN_KV), "--seed", "0",
+              "-p", "1", "--decoder-name", "saved_models/decoder_rand.pth",
+              "--device", str(device)]
+    caches, record = [], {}
+
+    class Cache(train_human.CachedDataset):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            caches.append(self)
+
+    def sampled(run):
+        def call(*a, **kw):
+            out = run(*a, **kw)
+            record["rss_kb_workers"] = _children_rss_kb()
+            record["rss_kb_parent"] = _rss_kb()
+            return out
+        return call
+
+    real = (train_human.CachedDataset, train_human.run_adapt_epoch,
+            train_human.run_pretrain_epoch)
+    runs = [(name, workers or workers8,
+             flags + ["--pretrain-epoch", "-1", "--epochs", "1", "-i", str(DA_ITERS)],
+             DA_ITERS) for name, workers, flags in DA_CLI_RUNS]
+    runs.append(("device_aug_pretrain", workers8,
+                 ["--device-aug", "--decode-cache", "1", "--pretrain-epoch", "1", "--epochs",
+                  "1", "-i", "3", "--s2t-freq", "1.0"], 0))
+    cli = {}
+    cwd, fuse_env = os.getcwd(), os.environ.pop("UDA_BN_FUSE", None)
+    train_human.CachedDataset = Cache
+    train_human.run_adapt_epoch = sampled(real[1])
+    train_human.run_pretrain_epoch = sampled(real[2])
+    os.chdir(work_dir)
+    try:
+        for name, workers, flags, warps in runs:
+            caches.clear()
+            record.clear()
+            args = train_human.build_parser().parse_args(
+                common + ["-j", str(workers), "--log", f"logs/{name}"] + flags)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                _reset_counts()
+                r0 = time.perf_counter()
+                train_human.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - r0
+                launches = _read_counts()
+            gc.collect()
+            if multiprocessing.active_children():
+                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            want = dict(dict.fromkeys(_counters(), 0), occlusion_warp=warps)
+            if launches != want:
+                raise AssertionError(f"run {name}: launches {launches}, needs {want}")
+            launches_by_path[f"cli_{name}"] = launches
+            log_dir = f"logs/{name}_{TRAINER_ARCH}"
+            (log,) = [f for f in os.listdir(log_dir) if f.startswith("train-")]
+            with open(os.path.join(log_dir, log)) as f:
+                lines = _finite_lines(f.read(), ("Epoch: 0 ",))
+            _finite_lines(printed.getvalue(), ("Epoch: [0][",))
+            times = printed_times(printed.getvalue())
+            half = DA_ITERS // 2
+            row = {"workers": workers, "wall_s": wall, "launches": launches, "log": lines,
+                   "first_batch_s": times["first_batch_s"], **record,
+                   "time_s_each": times["time_s_each"], "data_s_each": times["data_s_each"]}
+            if warps:
+                row.update({
+                    "time_s_median_pass1": statistics.median(times["time_s_each"][2:half]),
+                    "data_s_median_pass1": statistics.median(times["data_s_each"][2:half]),
+                    "time_s_median_pass2": statistics.median(times["time_s_each"][half:]),
+                    "data_s_median_pass2": statistics.median(times["data_s_each"][half:])})
+            if "--device-aug" in flags:
+                row["cache"] = [{"items": c.items_cached, "bytes": c.bytes_used,
+                                 "misses": c.misses, "hits": c.hits} for c in caches]
+                # DA_ITERS iterations read each training set twice: every
+                # item is decoded once, and the second pass is all hits
+                if warps and (len(caches) != 2 or any(
+                        (c.items_cached, c.misses, c.hits) != (DA_FRAMES,) * 3
+                        for c in caches)):
+                    raise AssertionError(f"run {name}: cache {row['cache']}, needs "
+                                         f"{DA_FRAMES} items and hits in each of 2")
+            cli[name] = row
+            emit({"phase": "device_aug", "cli_run": name, **row})
+    finally:
+        os.chdir(cwd)
+        (train_human.CachedDataset, train_human.run_adapt_epoch,
+         train_human.run_pretrain_epoch) = real
+        if fuse_env is not None:
+            os.environ["UDA_BN_FUSE"] = fuse_env
+    part("cli", p1)
+    emit({"phase": "device_aug", "model": "pose_resnet101", "batch": MAIN_B,
+          "image": MAIN_IMAGE, "heatmap": MAIN_HEATMAP, "k": MAIN_KV, "style": "s2t+t2s",
+          "occlusion": True, "dtype": "bf16 autocast, bf16 style", "views": views,
+          "step": step_result, "held_against_eager": held,
+          "cli_summary": {k: {m: v.get(m) for m in (
+              "time_s_median_pass1", "data_s_median_pass1", "time_s_median_pass2",
+              "data_s_median_pass2", "first_batch_s", "wall_s")} for k, v in cli.items()},
+          "fake_rhd_frames": DA_FRAMES, "cli_iterations": DA_ITERS,
+          "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line(),
+          "seconds_by_part": parts, "seconds": time.perf_counter() - t0})
+    return launches_by_path
+
+
 def phase_trainer_engine(device, work_dir, main_run, profile_dir=None):
     """The port's epoch loops on the card at full width (the models, batch
     and flags of phase main), fed by in-memory RHD-shaped batches: pretrain
@@ -1697,6 +2193,32 @@ def lengthen_fake_rhd(root, n):
         anno[i] = anno[i % have]
     with open(path, "wb") as f:
         pickle.dump(anno, f)
+
+
+def usable_fake_rhd(root, n):
+    """Give a fake RHD tree's training set exactly ``n`` samples that the
+    RHD dataset keeps (its hand-size filter drops some frames): new names
+    linked to the kept frames in turn, their annotations repeated, the
+    rest dropped from the annotation file."""
+    import pickle
+
+    from uda_poseestimation_torch.data.rendered_hand_pose import _get_samples
+
+    base = os.path.join(root, "RHD_published_v2")
+    kept = sorted(int(os.path.basename(s["name"])[:-4]) for s in _get_samples(base, "train"))
+    train = os.path.join(base, "training")
+    path = os.path.join(train, "anno_training.pickle")
+    with open(path, "rb") as f:
+        anno = pickle.load(f)
+    first = max(anno) + 1
+    out = {}
+    for i in range(n):
+        frame = kept[i % len(kept)]
+        os.link(os.path.join(train, "color", "%.5d.png" % frame),
+                os.path.join(train, "color", "%.5d.png" % (first + i)))
+        out[first + i] = anno[frame]
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
 
 
 def phase_trainer_cli(device, work_dir, checkpoint):
@@ -2186,6 +2708,10 @@ def main(argv=None) -> int:
         bundled_launches = timed("bundled", phase_bundled, device, work_dir, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        device_aug_launches = timed("device_aug", phase_device_aug, device, work_dir,
+                                    args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
         engine_launches, checkpoint = timed("trainer_engine", phase_trainer_engine, device,
                                             work_dir, main_run, args.profile)
         gc.collect()
@@ -2199,6 +2725,7 @@ def main(argv=None) -> int:
     # in all and in the last measured adapt step; then every path's own count
     by_path = {"main": main_run["launches"], "main_bn_fuse": fused_run["launches"],
                **{f"bundled_{k}": v for k, v in bundled_launches.items()},
+               **{f"device_aug_{k}": v for k, v in device_aug_launches.items()},
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()}}

@@ -210,6 +210,62 @@ def test_pretrain_bundler_equals_single_steps():
     assert bundled.step == 6
 
 
+def _device_aug(k=1):
+    """The port's DeviceAugPipeline at this file's sizes, and a raw batch
+    maker (uint8 canvases)."""
+    from uda_poseestimation_torch.ops.device_aug import DeviceAugConfig
+
+    cfg = DeviceAugConfig(image_size=64, heatmap_size=16, sigma=2.0)
+    pipe = tengine.DeviceAugPipeline(cfg, cfg, cfg, k=k, mean=[0.485, 0.456, 0.406],
+                                     std=[0.229, 0.224, 0.225], seed=4, device="cpu")
+
+    def raw(seed):
+        rng = np.random.RandomState(seed)
+        return {"canvas_s": rng.randint(0, 256, (B, 64, 64, 3)).astype(np.uint8),
+                "kp_s": rng.uniform(4, 60, (B, K, 2)).astype(np.float32),
+                "vis_s": np.ones((B, K), np.float32),
+                "canvas_t": rng.randint(0, 256, (B, 64, 64, 3)).astype(np.uint8),
+                "kp_t": rng.uniform(4, 60, (B, K, 2)).astype(np.float32),
+                "vis_t": np.ones((B, K), np.float32)}
+
+    return pipe, raw
+
+
+def test_bundlers_with_view_builders_equal_single_steps():
+    """--device-aug: the adapt bundler (views from the occlusion generator)
+    and the pretrain bundler (views from the pipeline's generator, the style
+    image only in the do_s2t case) against single steps with the same
+    generators, bit for bit."""
+    model, style = _models()
+    cfg = tts.StepConfig(**CFG)
+    pipe, raw = _device_aug()
+    single, bundled = (tts.create_state(copy.deepcopy(model), cfg, seed=None, device="cpu")
+                       for _ in range(2))
+    step = tts.make_adapt_step(cfg, style, "cpu", view_builder=pipe.view_builder)
+    bundler = tts.AdaptStepBundler(cfg, style, "cpu", view_builder=pipe.view_builder)
+    gen_single, gen_bundled = (torch.Generator().manual_seed(3) for _ in range(2))
+    gates = ADAPT_GATES[0]
+    batches = [raw(j) for j in range(3)]
+    want = [step(single, b, 1e-3, *g, generator=gen_single)[1] for b, g in zip(batches, gates)]
+    _, got, _ = bundler(bundled, batches, 1e-3, *zip(*gates), generator=gen_bundled)
+    _assert_equal_trees(got, want, "adapt")
+    _assert_same_state(single, bundled)
+    assert torch.equal(gen_single.get_state(), gen_bundled.get_state())
+
+    build = pipe.pretrain_view_builder(True)
+    pstep = tts.make_pretrain_step(cfg, style, "cpu", view_builder=build)
+    pbundler = tts.PretrainStepBundler(cfg, style, "cpu", view_builder=build)
+    gates = PRETRAIN_GATES[0]
+    batches = [raw(10 + j) for j in range(3)]
+    gen_single, gen_bundled = (torch.Generator().manual_seed(5) for _ in range(2))
+    want = [pstep(single, b, 1e-3, *g, generator=gen_single)[1]
+            for b, g in zip(batches, gates)]
+    _, got, _ = pbundler(bundled, batches, 1e-3, *zip(*gates), generator=gen_bundled)
+    _assert_equal_trees(got, want, "pretrain")
+    _assert_same_state(single, bundled)
+    assert torch.equal(gen_single.get_state(), gen_bundled.get_state())
+
+
 def test_bundler_restages_a_new_batch_shape():
     """A batch of another shape gets new static buffers (and, on the card,
     new graphs); the step still equals a single call."""
@@ -516,6 +572,31 @@ def test_bundled_and_unbundled_epochs_consume_the_same_streams(loop, capsys):
     assert 0 < fired < 7
 
 
+@pytest.mark.parametrize("loop", ["pretrain", "adapt"])
+def test_bundled_device_aug_epoch_matches_jax(loop, capsys):
+    """The bundled loops with --device-aug against the JAX package's, seven
+    iterations in bundles of 3, 3 and 1: the same fetches and pipeline
+    calls, the same raw batches per iteration and, in pretraining, zero
+    style canvases where the s2t gate did not fire (the target is fetched
+    only where it fired); a bundle's leaves keep one dtype."""
+    from test_torch_engine import assert_same_device_aug_runs, device_aug_run
+
+    jax_run, torch_run = device_aug_run(loop, True, capsys)
+    assert_same_device_aug_runs(jax_run, torch_run)
+    log = torch_run[0]
+    steps = [e for e in log if isinstance(e, tuple)]
+    assert len(steps) == 7
+    if loop == "pretrain":
+        fired = [bool(g[0]) for _, _, _, g in steps]
+        assert 0 < sum(fired) < 7 and log.count("target") == sum(fired)
+        for (_, leaves, raw, _), f in zip(steps, fired):
+            zero = dict((k, z) for k, _, _, z in leaves)
+            assert zero["canvas_t"] == zero["kp_t"] == zero["vis_t"] == (not f)
+            assert raw["canvas_t"].shape == raw["canvas_s"].shape
+    else:
+        assert log.count("raw_adapt_batch") == 7 and log.count("target") == 7
+
+
 # ---------------------------------------------------------------------------
 # (d) the CLI with --steps-per-dispatch 2 on the CPU
 # ---------------------------------------------------------------------------
@@ -717,3 +798,50 @@ def test_fingerprint_sees_what_a_graph_holds():
     assert restored != first
     state.optimizer.param_groups[0]["betas"] = (0.8, 0.999)
     assert tts._fingerprint(state) != restored
+
+
+@pytest.mark.gpu
+def test_device_aug_replays_match_eager_steps_on_card(cuda):
+    """--device-aug on the card: the views built inside each gate case's
+    graph replay equal the eager step's (the occluded student view, the
+    teacher's reconstruction, the occlusion, bit for bit, under
+    deterministic cuDNN), one occlusion_warp launch per replay; and the
+    view builder on the card against the CPU from the same draws: the
+    target weights equal, the views within 1e-4 (normalized) at all but
+    0.1% of their values."""
+    model, style = _models()
+    style = style.to(cuda)
+    cfg = tts.StepConfig(**CFG)
+    pipe, raw = _device_aug()
+    pipe_gpu = tengine.DeviceAugPipeline(pipe.cfg_src, pipe.cfg_stu, pipe.cfg_tea, k=1,
+                                         mean=pipe.mean, std=pipe.std, device=cuda)
+    state = tts.create_state(model, cfg, seed=None, device=cuda)
+    bundler = tts.AdaptStepBundler(cfg, style, cuda, view_builder=pipe_gpu.view_builder)
+    step = tts.make_adapt_step(cfg, style, cuda, view_builder=pipe_gpu.view_builder)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.from_numpy(v).pin_memory() for k, v in raw(0).items()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for s, t in ((True, True), (False, False)):
+            bundler(state, [batch], 1e-3, [s], [0.6], [t], [0.3], generator=gen)
+            twin = copy.deepcopy(state)
+            twin_gen = torch.Generator(device=cuda)
+            twin_gen.set_state(gen.get_state())
+            ow0 = occlusion_warp.launches
+            _, got, _ = bundler(state, [batch], 1e-3, [s], [0.6], [t], [0.3], generator=gen)
+            assert occlusion_warp.launches == ow0 + 1
+            _, want, _ = step(twin, batch, 1e-3, s, 0.6, t, 0.3, generator=twin_gen)
+            for k in ("occlude", "occlusion_rect", "x_t_stu_final", "y_t_tea_recon"):
+                assert torch.equal(got["aux"][k][0], want["aux"][k]), (s, t, k)
+    assert bundler.replays == 2
+
+    draws = pipe.draw_source(B, 64, torch.Generator().manual_seed(1))
+    draws = {"source": draws, "target": pipe.draw_target(B, 64, torch.Generator().manual_seed(2))}
+    to_card = functools.partial(tts._tree_map, lambda v: v.to(cuda))
+    want = pipe.view_builder({k: torch.from_numpy(v) for k, v in raw(1).items()}, draws=draws)
+    got = pipe_gpu.view_builder({k: torch.from_numpy(v).to(cuda) for k, v in raw(1).items()},
+                                draws=to_card(draws))
+    assert torch.equal(got["weight_s"].cpu(), want["weight_s"])
+    for k in ("image_s", "image_t_stu", "images_t_tea"):
+        off = ((got[k].cpu() - want[k]).abs() > 1e-4).double().mean()
+        assert off <= 1e-3, k

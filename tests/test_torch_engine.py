@@ -297,3 +297,181 @@ def test_validate_matches_jax(capsys):
     assert 0.0 < float(got["all"]) < 1.0
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-5)
     assert jlines == tlines and len(tlines) == 2
+
+
+# ---------------------------------------------------------------------------
+# --device-aug: both packages' loops with their DeviceAugPipeline, recorded
+# ---------------------------------------------------------------------------
+
+def _canvas_source(rng):
+    """A raw source batch: canvases on the uint8 grid as float32 (they pack
+    to uint8), some keypoints invisible."""
+    return (rng.randint(0, 256, (B, SIZE, SIZE, 3)).astype(np.float32) / 255.0,
+            rng.rand(B, K, HM, HM).astype(np.float32),
+            (rng.rand(B, K, 1) > 0.2).astype(np.float32),
+            {"keypoint2d": rng.uniform(2, SIZE - 2, (B, K, 2))})
+
+
+def _canvas_target(rng):
+    """A raw mean-teacher batch: uint8 canvases (ToUint8Canvas) and identity
+    aug_params (IdentityAffine)."""
+    canvas = rng.randint(0, 256, (B, SIZE, SIZE, 3)).astype(np.uint8)
+    ident = np.tile(np.array([0, 0, 0, 0, 0, 1], np.float32), (B, 1))
+    meta = {"aug_param_stu": ident, "keypoint2d_ori": rng.uniform(2, SIZE - 2, (B, K, 2)),
+            "target_weight_ori": (rng.rand(B, K, 1) > 0.1).astype(np.float32)}
+    return (canvas, None, None, meta, [canvas], None, None, [{"aug_param_tea": ident}])
+
+
+class _LoggedIter(_Iter):
+    def __init__(self, make, seed, torch_form, log, name):
+        super().__init__(make, seed, torch_form)
+        self.log, self.name = log, name
+
+    def __next__(self):
+        self.log.append(self.name)
+        return super().__next__()
+
+
+class _LoggedPipeline:
+    """A package's DeviceAugPipeline whose methods, called by a loop, are
+    logged by name (key streams and the port's cached zeros are each
+    package's own business and not logged)."""
+
+    def __init__(self, pipe, log):
+        self._pipe, self._log = pipe, log
+
+    def __getattr__(self, name):
+        attr = getattr(self._pipe, name)
+        if not callable(attr) or name in ("next_rng", "style_zeros"):
+            return attr
+
+        def call(*a, **kw):
+            self._log.append(name)
+            return attr(*a, **kw)
+
+        return call
+
+
+RAW_KEYS = ("canvas_s", "kp_s", "vis_s", "canvas_t", "kp_t", "vis_t")
+
+
+def _record_batch(log, batch, gates):
+    """A step's (or a bundle iteration's) batch in a common form: every
+    leaf's shape and dtype and whether it is all zeros; a raw leaf's values
+    (both packages copy the same host data), and the gates."""
+    leaves = {k: np.asarray(v) for k, v in batch.items()}
+    log.append(("step", sorted((k, v.shape, v.dtype.str, not v.any()) for k, v in
+                               leaves.items()),
+                {k: v for k, v in leaves.items() if k in RAW_KEYS},
+                tuple(np.float32(np.asarray(g)) for g in gates)))
+
+
+def device_aug_run(loop, bundled, capsys, iters=7):
+    """Both packages' ``loop`` ('pretrain' or 'adapt') with a
+    DeviceAugPipeline and style on, unbundled or in bundles of 3, on the
+    same streams; returns per package (the log of fetches, pipeline calls
+    and step batches, the next np.random draw, the masked lines)."""
+    from uda_poseestimation_tpu.ops.device_aug import DeviceAugConfig as JCfg
+    from uda_poseestimation_torch.ops.device_aug import DeviceAugConfig as TCfg
+
+    state = types.SimpleNamespace(student=torch.nn.Linear(1, 1))
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    out = []
+    for pkg in ("jax", "torch"):
+        tf = pkg == "torch"
+        log = []
+        cfg = (TCfg if tf else JCfg)(image_size=SIZE, heatmap_size=HM, sigma=1.0)
+        pipe = (tengine.DeviceAugPipeline(cfg, cfg, cfg, k=1, mean=mean, std=std,
+                                          device="cpu") if tf else
+                jengine.DeviceAugPipeline(cfg, cfg, cfg, k=1, mean=mean, std=std))
+        pipe = _LoggedPipeline(pipe, log)
+        src = _LoggedIter(_canvas_source, 1, tf, log, "source")
+        tgt = _LoggedIter(_canvas_target, 2, tf, log, "target")
+        metrics = {"loss_all": 0.5, "loss_s": 0.25, "loss_c": 0.125, "acc_s": 0.1,
+                   "acc_cnt": 1}
+
+        def answer(n):
+            if n is None:
+                m = {k: np.float32(v) for k, v in metrics.items()}
+                m["acc_cnt"] = np.int32(1)
+                return (state, {k: torch.tensor(v) for k, v in m.items()} if tf else m,
+                        torch.zeros(B, K, HM, HM) if tf else np.zeros((B, K, HM, HM)))
+            m = {k: np.full(n, v, np.int32 if k == "acc_cnt" else np.float32)
+                 for k, v in metrics.items()}
+            return (state, {k: torch.from_numpy(v) for k, v in m.items()} if tf else m,
+                    None)
+
+        def step(*a, **kw):
+            # the batch and the gates follow the state (and, in JAX, the
+            # style params) and the lr (and, in JAX adapt, the rng)
+            batch = a[1] if tf else a[2]
+            gates = a[3:] if tf else (a[4:] if loop == "pretrain" else a[5:])
+            _record_batch(log, batch, gates)
+            return answer(None)
+
+        def bundle(*a, **kw):
+            if tf:
+                batches, gates = a[1], list(zip(*a[3:]))
+                assert loop == "adapt" or kw["generator"] is pipe.generator
+            else:
+                n = len(a[5])
+                batches = [{k: np.asarray(v)[j] for k, v in a[2].items()} for j in range(n)]
+                gates = list(zip(*(np.asarray(g) for g in a[5:])))
+            for b, g in zip(batches, gates):
+                _record_batch(log, b, g)
+            return answer(len(batches))
+
+        np.random.seed(42)
+        args = _args(iters_per_epoch=iters, steps_per_dispatch=3 if bundled else 1,
+                     s2t_freq=0.5)
+        kw = dict(style_enabled=True, device_aug=pipe,
+                  bundler=bundle if bundled else None)
+        if loop == "pretrain":
+            if tf:
+                tengine.run_pretrain_epoch(state, step, src, tgt, 3, 1e-4, args, **kw)
+            else:
+                jengine.run_pretrain_epoch(None, None, step, make_mesh(1), src, tgt, 3, 1e-4,
+                                           args, **kw)
+        elif tf:
+            tengine.run_adapt_epoch(state, step, src, tgt, 3, 1e-4, args, **kw)
+        else:
+            jengine.run_adapt_epoch(None, None, step, make_mesh(1), src, tgt, 3, 1e-4, args,
+                                    **kw)
+        out.append((log, np.random.rand(), _masked(capsys.readouterr().out)))
+    return out
+
+
+def assert_same_device_aug_runs(jax_run, torch_run):
+    (jlog, jnext, jlines), (tlog, tnext, tlines) = jax_run, torch_run
+    assert [e if isinstance(e, str) else e[0] for e in jlog] == \
+        [e if isinstance(e, str) else e[0] for e in tlog]
+    for je, te in zip(jlog, tlog):
+        if isinstance(je, tuple):
+            assert je[1] == te[1] and je[3] == te[3]
+            assert sorted(je[2]) == sorted(te[2])
+            for k in je[2]:
+                np.testing.assert_array_equal(te[2][k], je[2][k], err_msg=k)
+    assert jnext == tnext and jlines == tlines
+
+
+@pytest.mark.parametrize("loop", ["pretrain", "adapt"])
+def test_device_aug_epoch_matches_jax(loop, capsys):
+    """The unbundled loops with --device-aug: the same fetches, pipeline
+    calls (adapt: the raw batch into the step; pretrain: the source views,
+    and the style image only when s2t fires, zeros otherwise) and step
+    batches."""
+    jax_run, torch_run = device_aug_run(loop, False, capsys)
+    assert_same_device_aug_runs(jax_run, torch_run)
+    log = torch_run[0]
+    steps = [e for e in log if isinstance(e, tuple)]
+    assert len(steps) == 7
+    if loop == "pretrain":
+        fired = [g[0] for _, _, _, g in steps]
+        assert 0 < sum(fired) < 7 and log.count("target") == sum(fired)
+        assert log.count("style_image") == sum(fired)
+        zero = [dict((k, z) for k, _, _, z in leaves)["image_t_style"]
+                for _, leaves, _, _ in steps]
+        assert zero == [not f for f in fired]
+    else:
+        assert log.count("raw_adapt_batch") == 7 and log.count("target") == 7
+        assert all(dict((k, d) for k, _, d, _ in e[1])["canvas_s"] == "|u1" for e in steps)

@@ -112,7 +112,6 @@ def test_script_lines_parse_alike(index):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--device-aug"], "A9"), (["--decode-cache", "0.5"], "A9"),
     (["--dist-coordinator", "localhost:1"], "A12"),
     (["--dist-num-processes", "2"], "A12"), (["--dist-process-id", "1"], "A12")])
 def test_unported_flags_raise(tmp_path, monkeypatch, flags, item):
@@ -393,3 +392,58 @@ def test_r2h_cli_drive_on_cpu(fixture_root, pair_roots):
         assert all(math.isfinite(v) for v in _numbers(line)), line
     for name in ("MCP", "PIP", "DIP", "fingertip", "all"):
         assert sum(line.startswith(name + ": ") for line in lines) == 1, name
+
+
+@pytest.mark.parametrize("spd", [1, 2])
+def test_cli_device_aug_drive_on_cpu(fixture_root, spd, monkeypatch, capsys):
+    """``--device-aug --decode-cache 1`` with two forked loader workers: a
+    pretrain epoch, then an adapt epoch from its ``best_pt`` (the
+    validation's result is raised a little at each call, so that the
+    pretrain epoch writes one), unbundled and with ``--steps-per-dispatch
+    2``. The views come from the device pipeline (no host augmentation),
+    both training sets are cached, and from the second pass on their items
+    come from the cache."""
+    monkeypatch.chdir(fixture_root)
+    log = f"logs/device_aug_{spd}"
+    caches, pipes = [], []
+
+    class Cache(ttrain.CachedDataset):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            caches.append(self)
+
+    class Pipeline(ttrain.DeviceAugPipeline):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pipes.append(self)
+
+    real_validate, calls = ttrain.run_validate, []
+
+    def validate(*args, **kwargs):
+        calls.append(1)
+        return {k: v + len(calls) for k, v in real_validate(*args, **kwargs).items()}
+
+    monkeypatch.setattr(ttrain, "CachedDataset", Cache)
+    monkeypatch.setattr(ttrain, "DeviceAugPipeline", Pipeline)
+    monkeypatch.setattr(ttrain, "run_validate", validate)
+    monkeypatch.setattr(ttrain, "CompleteLogger", functools.partial(CompleteLogger, now="fixed"))
+    ttrain.main(ttrain.build_parser().parse_args(
+        FIXTURE_ARGS + ["--device", "cpu", "--epochs", "2", "--pretrain-epoch", "1", "-i", "3",
+                        "-j", "2", "--device-aug", "--decode-cache", "1",
+                        "--steps-per-dispatch", str(spd), "--log", log]))
+    out = capsys.readouterr().out.splitlines()
+    for epoch, loss_c in ((0, False), (1, True)):
+        lines = [ln for ln in out if ln.startswith(f"Epoch: [{epoch}][")]
+        assert len(lines) == 3 and all(("Loss (c)" in ln) == loss_c for ln in lines)
+        for ln in lines:
+            assert all(math.isfinite(v) for v in _numbers(ln)), ln
+    epochs = _epoch_lines((fixture_root / f"{log}_pose_resnet50" / "train-fixed.txt")
+                          .read_text())
+    assert [line.split()[1] for line in epochs] == ["0", "1"]
+    assert len(pipes) == 1 and len(caches) == 2
+    # 8 frames, 2 batches a pass: both sets are past their first pass
+    assert all(c.items_cached == 8 and c.hits > 0 for c in caches)
+    ckpt_dir = fixture_root / "checkpoints" / f"device_aug_{spd}_pose_resnet50" / \
+        "checkpoints_fixed"
+    for name in ("best_pt", "best"):
+        os.remove(ckpt_dir / f"{name}.pth")  # ~0.5 GB each

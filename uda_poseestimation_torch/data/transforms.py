@@ -4,7 +4,8 @@ The port's copy of the transforms that the human trainer's
 ``build_transforms`` uses, from ``uda_poseestimation_tpu/data/transforms.py``:
 ``Compose``, ``ToTensor``, ``Normalize``, ``Resize``, ``RandomResizedCrop``,
 ``RandomAffineRotation``, ``ColorJitter``, ``GaussianBlur`` and the helpers
-they call, and ``ResizePad``, the LSP datasets' fixed resize. Geometry is PIL + numpy with torchvision's matrix conventions:
+they call, ``ResizePad``, the LSP datasets' fixed resize, and the raw-canvas
+transforms of ``--device-aug``, ``ToUint8Canvas`` and ``IdentityAffine``. Geometry is PIL + numpy with torchvision's matrix conventions:
 
 - ``affine``: PIL ``Image.transform(AFFINE, inverse_matrix)`` about the
   center (w*0.5+0.5, h*0.5+0.5) with NEAREST resampling, keypoints moved by
@@ -194,6 +195,22 @@ class ToTensor:
         return arr, kwargs
 
 
+class ToUint8Canvas:
+    """PIL -> HWC uint8 numpy, the ``--device-aug`` raw canvas: the device
+    divides by 255 (``engine.DeviceAugPipeline.dev_canvas``), so the canvas
+    crosses the loader, the decode cache and the host-to-device copy at a
+    quarter of ToTensor's bytes. A source that is not uint8 gets ToTensor's
+    float32 [0, 1] instead."""
+
+    def __call__(self, image, **kwargs):
+        src = np.asarray(image)
+        if src.dtype == np.uint8:
+            if src.ndim == 2:
+                src = src[:, :, None]
+            return src, kwargs
+        return ToTensor()(image, **kwargs)
+
+
 class Normalize:
     def __init__(self, mean, std):
         self.mean = np.asarray(mean, np.float32)
@@ -310,6 +327,16 @@ class RandomAffineRotation:
                                               trans_x, trans_y, scale, keypoint2d)
         kwargs["aug_param"] = aug_param
         kwargs.update(keypoint2d=keypoint2d)
+        return image, kwargs
+
+
+class IdentityAffine:
+    """An identity ``aug_param``, the image untouched: the mean-teacher
+    datasets need their student and teacher transforms to give one, and
+    under ``--device-aug`` the real parameters are drawn on the device."""
+
+    def __call__(self, image, **kwargs):
+        kwargs["aug_param"] = np.array([0.0, 0.0, 0.0, 0.0, 0.0, 1.0], np.float32)
         return image, kwargs
 
 

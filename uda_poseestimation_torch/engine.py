@@ -22,7 +22,13 @@ what a user of the JAX engine can observe:
   The bundled loops do the same over bundles: one readback per bundle, each
   iteration's Time the bundle's divided by its steps, a trailing partial
   bundle when n does not divide the epoch, and the same draws, target
-  advances and log lines as the loops above (they pass no debug images).
+  advances and log lines as the loops above (they pass no debug images);
+- ``--device-aug`` (``DeviceAugPipeline``, ROADMAP A9): the loaders give
+  raw uint8 canvases and the views are built on the device, inside the
+  adapt step (and the bundled pretrain step) or, in the unbundled pretrain
+  loop, just before the step, with the JAX loops' fetch order: the target
+  is fetched in pretraining only when s2t fires, and a bundle's other
+  iterations carry zero style canvases (``pretrain_style_template``).
 
 Batches stay on the host until the step copies them to its device
 (``parallel/train_step.py``), asynchronously from page-locked memory, which
@@ -37,6 +43,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from .device import DeviceLike, resolve_device
+from .ops.device_aug import augment_views, draw_rrc, draw_view, rrc_views
 from .ops.pck import get_max_preds_np
 from .utils.meter import AverageMeter, AverageMeterList, ProgressMeter
 
@@ -81,6 +89,208 @@ def make_adapt_batch(src_tuple, tgt_tuple) -> dict:
     }
 
 
+def _pinned_like(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return out.pin_memory() if like.is_pinned() else out
+
+
+class DeviceAugPipeline:
+    """``--device-aug``: every augmented view drawn and rendered on the
+    device (``ops/device_aug.py``; the JAX package's ``DeviceAugPipeline``).
+
+    The host datasets give one canvas per sample (Resize + ToUint8Canvas,
+    identity ``aug_param``); the batches cross to the device as uint8,
+    page-locked when the loader pins them, and are divided by 255 there.
+    ``view_builder`` makes the adapt step's batch from them inside the step
+    (``make_adapt_step(view_builder=...)``): the source view, one shared
+    RandomResizedCrop base view of the target and from it the student view
+    and k teacher views. ``pretrain_view_builder`` does the same for the
+    pretrain step, the style image only when s2t fires. The unbundled
+    pretrain loop calls ``prep_source`` and ``style_image`` itself.
+
+    Draws come from ``generator`` where one is given (the adapt step's
+    occlusion generator), else from ``self.generator``, a generator on the
+    device seeded from ``seed`` (the JAX pipeline's own key stream); or
+    injected as ``draws``: {"source": ``draw_view`` of (1, B)} and
+    {"target": {"base": ``draw_rrc`` of (B,), "student": (1, B), "teacher":
+    (k, B)}}, drawn in that order.
+    """
+
+    def __init__(self, cfg_src, cfg_stu, cfg_tea, k: int, mean, std, seed: int = 0,
+                 device: DeviceLike = None):
+        self.cfg_src, self.cfg_stu, self.cfg_tea = cfg_src, cfg_stu, cfg_tea
+        self.k = k
+        self.mean, self.std = tuple(mean), tuple(std)
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._zeros = {}
+
+    @staticmethod
+    def dev_canvas(c: torch.Tensor) -> torch.Tensor:
+        """uint8 canvases cross host to device 4x smaller; /255 there (the
+        host ToTensor's division, within 1 ulp)."""
+        return c.to(torch.float32) / 255.0 if c.dtype == torch.uint8 else c
+
+    def _gen(self, generator):
+        return self.generator if generator is None else generator
+
+    def draw_source(self, b: int, canvas: int, generator=None) -> dict:
+        return draw_view(self.cfg_src, (1, b), canvas, self.device, self._gen(generator))
+
+    def draw_target(self, b: int, canvas: int, generator=None) -> dict:
+        g = self._gen(generator)
+        return {"base": draw_rrc(self.cfg_src, (b,), canvas, self.device, g),
+                "student": draw_view(self.cfg_stu, (1, b), canvas, self.device, g),
+                "teacher": draw_view(self.cfg_tea, (self.k, b), canvas, self.device, g)}
+
+    def prep_source(self, canvas, kp, vis, generator=None, draws=None):
+        """The source view: (image, target, target_weight, keypoint2d)."""
+        c = self.dev_canvas(canvas)
+        if draws is None:
+            draws = self.draw_source(c.shape[0], c.shape[1], generator)
+        out = augment_views(c, kp, vis, self.cfg_src, draws, self.mean, self.std)
+        return (out["image"][0], out["target"][0], out["target_weight"][0],
+                out["keypoint2d"][0])
+
+    def prep_target(self, canvas, kp, vis, generator=None, draws=None):
+        """The target views: (student image, its aug_param, the k teacher
+        images (k, B, ...), their aug_params (k, B, 6))."""
+        c = self.dev_canvas(canvas)
+        if draws is None:
+            draws = self.draw_target(c.shape[0], c.shape[1], generator)
+        base_img, base_kp = rrc_views(c, kp, draws["base"], self.cfg_src.image_size)
+        stu = augment_views(base_img, base_kp, vis, self.cfg_stu, draws["student"],
+                            self.mean, self.std, targets=False)
+        tea = augment_views(base_img, base_kp, vis, self.cfg_tea, draws["teacher"],
+                            self.mean, self.std, targets=False)
+        return stu["image"][0], stu["aug_param"][0], tea["image"], tea["aug_param"]
+
+    def view_builder(self, raw_batch, generator=None, draws=None) -> dict:
+        """The adapt step's batch from a raw one, on the raw batch's device
+        (pass to ``make_adapt_step(view_builder=...)``)."""
+        draws = draws or {}
+        img_s, tgt_s, w_s, _kp = self.prep_source(
+            raw_batch["canvas_s"], raw_batch["kp_s"], raw_batch["vis_s"], generator,
+            draws.get("source"))
+        x_t_stu, aug_stu, x_t_teas, aug_teas = self.prep_target(
+            raw_batch["canvas_t"], raw_batch["kp_t"], raw_batch["vis_t"], generator,
+            draws.get("target"))
+        return {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s,
+                "image_t_stu": x_t_stu, "images_t_tea": x_t_teas,
+                "aug_param_stu": aug_stu, "aug_params_tea": aug_teas}
+
+    def pretrain_view_builder(self, style_enabled: bool):
+        """The pretrain step's builder, ``build(raw_batch, do_s2t,
+        generator=None, draws=None)``: the source views and, when style is
+        on and s2t fires, the style image (the first teacher view, as the
+        reference feeds it, train_human.py:270-276). Otherwise no style image
+        is built: the step reads it only when s2t fires."""
+
+        def build(raw_batch, do_s2t, generator=None, draws=None):
+            draws = draws or {}
+            img_s, tgt_s, w_s, _kp = self.prep_source(
+                raw_batch["canvas_s"], raw_batch["kp_s"], raw_batch["vis_s"], generator,
+                draws.get("source"))
+            out = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
+            if style_enabled and do_s2t:
+                out["image_t_style"] = self.prep_target(
+                    raw_batch["canvas_t"], raw_batch["kp_t"], raw_batch["vis_t"],
+                    generator, draws.get("target"))[2][0]
+            return out
+
+        return build
+
+    def _pack_canvas(self, x) -> torch.Tensor:
+        """uint8 transport when the canvas is exactly on the uint8/255 grid
+        (a uint8 batch passes as it is); any other batch ships as float32.
+        A packed batch stays page-locked if it was."""
+        x = torch.as_tensor(x)
+        if x.dtype == torch.uint8:
+            return x
+        x = x.to(torch.float32)
+        q = torch.round(x * 255.0)
+        if x.numel() and float((q / 255.0 - x).abs().max()) < 1e-6:
+            return _pinned_like(q.to(torch.uint8), x)
+        return x
+
+    def _raw(self, canvas, kp, weight, suffix) -> dict:
+        return {"canvas" + suffix: self._pack_canvas(canvas), "kp" + suffix: _f32(kp),
+                "vis" + suffix: _f32(weight)[..., 0]}
+
+    def raw_adapt_batch(self, src_tuple, tgt_tuple) -> dict:
+        """The raw adapt batch, on the host: the step copies it to its device
+        (a bundler stages it)."""
+        x, _t, weight, meta = src_tuple
+        meta_t = tgt_tuple[3]
+        return {**self._raw(x, meta["keypoint2d"], weight, "_s"),
+                **self._raw(tgt_tuple[0], meta_t["keypoint2d_ori"],
+                            meta_t["target_weight_ori"], "_t")}
+
+    def raw_pretrain_batch(self, src_tuple, tgt_tuple=None) -> dict:
+        """The raw pretrain batch of one iteration, on the host; ``tgt_tuple``
+        gives the style canvases when the s2t gate fired."""
+        x, _t, weight, meta = src_tuple
+        batch = self._raw(x, meta["keypoint2d"], weight, "_s")
+        if tgt_tuple is not None:
+            meta_t = tgt_tuple[3]
+            batch.update(self._raw(tgt_tuple[0], meta_t["keypoint2d_ori"],
+                                   meta_t["target_weight_ori"], "_t"))
+        return batch
+
+    def pretrain_style_template(self, raw_batch) -> dict:
+        """{style leaf: (shape, dtype)} of the zeros a bundled pretrain
+        iteration whose s2t gate did not fire carries (the target stream is
+        fetched only on fired draws); from the source leaves, since source
+        and target canvases share the canvas grid and keypoint count."""
+        return {"canvas_t": (tuple(raw_batch["canvas_s"].shape), raw_batch["canvas_s"].dtype),
+                "kp_t": (tuple(raw_batch["kp_s"].shape), torch.float32),
+                "vis_t": (tuple(raw_batch["vis_s"].shape), torch.float32)}
+
+    def style_zeros(self, template, like) -> dict:
+        """The zeros of ``template``, made once per shape (page-locked when
+        ``like`` is)."""
+        key = tuple(sorted((k, s, str(d)) for k, (s, d) in template.items()))
+        if key not in self._zeros:
+            self._zeros[key] = {k: _pinned_like(torch.zeros(s, dtype=d), like)
+                                for k, (s, d) in template.items()}
+        return self._zeros[key]
+
+    def _put(self, tensors):
+        return tuple(t.to(self.device, non_blocking=True) for t in tensors)
+
+    def raw_source(self, src_tuple):
+        """(canvas, keypoints, visibility) of a source batch on the device."""
+        x, _t, weight, meta = src_tuple
+        return self._put(self._raw(x, meta["keypoint2d"], weight, "_s").values())
+
+    def raw_target(self, tgt_tuple):
+        meta = tgt_tuple[3]
+        return self._put(self._raw(tgt_tuple[0], meta["keypoint2d_ori"],
+                                   meta["target_weight_ori"], "_t").values())
+
+    def style_image(self, tgt_tuple) -> torch.Tensor:
+        """The normalized style image of an unbundled pretrain s2t draw: the
+        first teacher view, drawn from ``self.generator``."""
+        return self.prep_target(*self.raw_target(tgt_tuple))[2][0]
+
+
+def _stack_host_leaves(batches) -> list:
+    """A bundle's batches with the JAX ``_stack_host_leaves`` dtype rule per
+    leaf: canvases stay uint8 only when every batch of the bundle packed to
+    uint8; in a mixed bundle the uint8 ones are decoded to the float32
+    canvas (u8 / 255) first. (The port stages the batches one by one, so
+    nothing is stacked; a leaf keeps one dtype across the bundle.)"""
+    out = [dict(b) for b in batches]
+    for k in batches[0]:
+        leaves = [b[k] for b in batches]
+        u8 = [torch.as_tensor(x).dtype == torch.uint8 for x in leaves]
+        if any(u8) and not all(u8):
+            for b, is_u8 in zip(out, u8):
+                if is_u8:
+                    b[k] = torch.as_tensor(b[k]).to(torch.float32) / 255.0
+    return out
+
+
 class StyleGate:
     """Host-side per-iteration Bernoulli + alpha draws (reference RNG order),
     from the global ``np.random`` stream (one process; the JAX package's
@@ -103,17 +313,22 @@ def _device(state) -> torch.device:
     return next(state.student.parameters()).device
 
 
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _visualize_source(visualize, x_s, y_s, keypoint2d, i, args):
     pred_s, _ = get_max_preds_np(y_s.float().cpu().numpy())
     ratio = args.image_size / args.heatmap_size
-    image = np.asarray(x_s[0])
+    image = _host(x_s[0])
     visualize(image, pred_s[0] * ratio, "source_{}_pred.jpg".format(i))
     if keypoint2d is not None:
-        visualize(image, np.asarray(keypoint2d)[0], "source_{}_label.jpg".format(i))
+        visualize(image, _host(keypoint2d)[0], "source_{}_label.jpg".format(i))
 
 
 def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr, args,
-                       visualize=None, style_enabled=False, bundler=None):
+                       visualize=None, style_enabled=False, bundler=None,
+                       device_aug=None):
     """Source-only supervised epoch (train_human.py:244-302).
 
     ``pretrain_step(state, batch, lr, do_s2t, alpha)`` is
@@ -121,7 +336,10 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
     the target's first teacher view as the style image when the s2t gate
     fires, and zeros otherwise. With ``bundler`` (a ``PretrainStepBundler``)
     and ``args.steps_per_dispatch > 1`` the epoch runs n iterations per
-    bundler call. Returns the state."""
+    bundler call. With ``device_aug`` (a ``DeviceAugPipeline``) the batches
+    are raw canvases: the unbundled loop builds the views on the device
+    before each step, the bundler's step builds them itself. Returns the
+    state."""
     batch_time = AverageMeter("Time", ":4.2f")
     data_time = AverageMeter("Data", ":3.1f")
     losses_all = AverageMeter("Loss (all)", ":.4e")
@@ -137,7 +355,8 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
     if n_bundle > 1 and bundler is not None:
         return _run_pretrain_epoch_bundled(
             state, bundler, source_iter, target_iter, lr, args, gate, style_enabled,
-            n_bundle, [batch_time, data_time, losses_all, losses_s, acc_s], progress)
+            n_bundle, [batch_time, data_time, losses_all, losses_s, acc_s], progress,
+            device_aug)
     dummy_style = _DummyStyle()
     end = time.time()
     pending = None
@@ -158,10 +377,19 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
     for i in range(args.iters_per_epoch):
         x_s, label_s, weight_s, meta_s = next(source_iter)
         do_s2t, alpha = gate.draw()
-        image_t_style = None
-        if style_enabled:
-            image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
-        batch = make_source_batch(x_s, label_s, weight_s, image_t_style)
+        if device_aug is not None:
+            raw = device_aug.raw_source((x_s, label_s, weight_s, meta_s))
+            img_s, tgt_s, w_s, kp_aug = device_aug.prep_source(*raw)
+            batch = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
+            meta_s = {"keypoint2d": kp_aug}
+            if style_enabled:
+                batch["image_t_style"] = (device_aug.style_image(next(target_iter))
+                                          if do_s2t else torch.zeros_like(img_s))
+        else:
+            image_t_style = None
+            if style_enabled:
+                image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
+            batch = make_source_batch(x_s, label_s, weight_s, image_t_style)
         data_time.update(time.time() - end)
 
         state, metrics, y_s = pretrain_step(state, batch, lr, do_s2t, alpha)
@@ -174,15 +402,17 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
 
 
 def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args,
-                    visualize=None, style_enabled=False, bundler=None):
+                    visualize=None, style_enabled=False, bundler=None, device_aug=None):
     """Mean-teacher adaptation epoch (train_human.py:305-458).
 
     ``adapt_step(state, batch, lr, do_s2t, alpha_s2t, do_t2s, alpha_t2s,
-    generator=...)`` is ``make_adapt_step``'s step; its occlusion draws come
-    from one generator on the state's device, seeded per epoch from
-    ``np.random``. With ``bundler`` (an ``AdaptStepBundler``) and
-    ``args.steps_per_dispatch > 1`` the epoch runs n iterations per bundler
-    call. Returns the state."""
+    generator=...)`` is ``make_adapt_step``'s step; its occlusion draws (and
+    with ``device_aug`` its view draws, made first) come from one generator
+    on the state's device, seeded per epoch from ``np.random``. With
+    ``bundler`` (an ``AdaptStepBundler``) and ``args.steps_per_dispatch >
+    1`` the epoch runs n iterations per bundler call. With ``device_aug`` (a
+    ``DeviceAugPipeline``) the batches are raw canvases, for a step made
+    with its ``view_builder``. Returns the state."""
     batch_time = AverageMeter("Time", ":4.2f")
     data_time = AverageMeter("Data", ":3.1f")
     losses_all = AverageMeter("Loss (all)", ":.4e")
@@ -205,7 +435,7 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
         return _run_adapt_epoch_bundled(
             state, bundler, source_iter, target_iter, lr, args, s2t, t2s, generator,
             n_bundle, [batch_time, data_time, losses_all, losses_s, losses_c, acc_s],
-            progress)
+            progress, device_aug)
     end = time.time()
     pending = None
 
@@ -226,7 +456,12 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
     for i in range(args.iters_per_epoch):
         src = next(source_iter)
         tgt = next(target_iter)
-        batch = make_adapt_batch(src, tgt)
+        if device_aug is not None:
+            # raw canvases only: the step builds every view
+            batch = device_aug.raw_adapt_batch(src, tgt)
+            src = (src[0], None, None, {"keypoint2d": None})
+        else:
+            batch = make_adapt_batch(src, tgt)
         data_time.update(time.time() - end)
 
         do_s2t, alpha_s2t = s2t.draw()
@@ -304,44 +539,79 @@ def _bundle_flush(meters, progress, args, names):
 
 
 def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, args, gate,
-                                style_enabled, n_bundle, meters, progress):
+                                style_enabled, n_bundle, meters, progress, device_aug=None):
     """n-iterations-per-call pretrain epoch (see run_pretrain_epoch). Per
     iteration it fetches the source, draws the s2t gate and fetches a target
     only when the gate fires, as the unbundled loop does, so both consume
-    the same streams."""
+    the same streams. With ``device_aug`` an iteration whose gate did not
+    fire carries zero style canvases, shaped as a fired one's or, before
+    any fired, by ``pretrain_style_template``."""
     data_time = meters[1]
     flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s"))
     dummy_style = _DummyStyle()
+    style_tpl = None  # {style leaf: (shape, dtype)} once known
     pending = None
     i = 0
     while i < args.iters_per_epoch:
         n_sub = min(n_bundle, args.iters_per_epoch - i)
         batches, gates = [], []
         for _ in range(n_sub):
-            x_s, label_s, weight_s, _meta = next(source_iter)
+            src = next(source_iter)
             do_s2t, alpha = gate.draw()
-            image_t_style = None
-            if style_enabled:
-                image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
-            batches.append(make_source_batch(x_s, label_s, weight_s, image_t_style))
+            fired = style_enabled and do_s2t
+            if device_aug is not None:
+                batches.append(device_aug.raw_pretrain_batch(
+                    src, next(target_iter) if fired else None))
+            else:
+                x_s, label_s, weight_s, _meta = src
+                image_t_style = None
+                if style_enabled:
+                    image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
+                batches.append(make_source_batch(x_s, label_s, weight_s, image_t_style))
             gates.append((do_s2t, alpha))
+        if device_aug is not None:
+            if style_enabled:
+                style_tpl = _style_template(device_aug, batches, style_tpl)
+                for b in batches:
+                    if "canvas_t" not in b:
+                        b.update(device_aug.style_zeros(style_tpl, b["canvas_s"]))
+            batches = _stack_host_leaves(batches)
         data_time.update(time.time() - end[0])
 
         do_s2t, alphas = zip(*gates)
-        state, metrics, _ = bundler(state, batches, lr, do_s2t, alphas)
+        if device_aug is not None:
+            state, metrics, _ = bundler(state, batches, lr, do_s2t, alphas,
+                                        generator=device_aug.generator)
+        else:
+            state, metrics, _ = bundler(state, batches, lr, do_s2t, alphas)
         readback = _Readback(metrics)
         if pending is not None:
             flush(pending)
         # the host batches stay alive until their bundle is read back
-        pending = (i, n_sub, len(batches[0]["image_s"]), readback, batches)
+        pending = (i, n_sub, _batch_size(batches[0]), readback, batches)
         i += n_sub
     if pending is not None:
         flush(pending)
     return state
 
 
+def _batch_size(batch) -> int:
+    return len(batch["image_s"] if "image_s" in batch else batch["canvas_s"])
+
+
+def _style_template(device_aug, batches, known):
+    """The zero style canvases' spec (JAX ``_run_pretrain_epoch_bundled``):
+    a fired batch's own shapes and dtypes when the bundle has one, else the
+    spec already known, else ``pretrain_style_template`` of the first."""
+    fired = next((b for b in batches if "canvas_t" in b), None)
+    if fired is not None:
+        return {k: (tuple(fired[k].shape), fired[k].dtype)
+                for k in device_aug.pretrain_style_template(fired)}
+    return known if known is not None else device_aug.pretrain_style_template(batches[0])
+
+
 def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args, s2t, t2s,
-                             generator, n_bundle, meters, progress):
+                             generator, n_bundle, meters, progress, device_aug=None):
     """n-iterations-per-call adaptation epoch (see run_adapt_epoch). Per
     iteration it fetches the source and the target, then draws s2t and t2s,
     as the unbundled loop does."""
@@ -355,8 +625,11 @@ def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args,
         for _ in range(n_sub):
             src = next(source_iter)
             tgt = next(target_iter)
-            batches.append(make_adapt_batch(src, tgt))
+            batches.append(device_aug.raw_adapt_batch(src, tgt) if device_aug is not None
+                           else make_adapt_batch(src, tgt))
             gates.append((*s2t.draw(), *t2s.draw()))
+        if device_aug is not None:
+            batches = _stack_host_leaves(batches)
         data_time.update(time.time() - end[0])
 
         do_s2t, alpha_s2t, do_t2s, alpha_t2s = zip(*gates)
@@ -365,7 +638,7 @@ def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args,
         readback = _Readback(metrics)
         if pending is not None:
             flush(pending)
-        pending = (i, n_sub, len(batches[0]["image_s"]), readback, batches)
+        pending = (i, n_sub, _batch_size(batches[0]), readback, batches)
         i += n_sub
     if pending is not None:
         flush(pending)

@@ -1,7 +1,9 @@
-"""Batched nearest-mode affine warps with torchvision-exact sampling.
+"""Batched affine warps with torchvision-exact sampling.
 
-PyTorch twin of ``uda_poseestimation_tpu/ops/affine.py`` (nearest mode, the
-exact-chain path the train step runs). The conventions are the same:
+PyTorch twin of ``uda_poseestimation_tpu/ops/affine.py``: the exact nearest
+chain the train step runs, ``warp_affine`` in nearest and bilinear modes and
+``affine_keypoints`` (the on-device augmentation's, ``ops/device_aug.py``).
+The conventions are the same:
 
 - ``inverse_affine_coeffs`` gives the six output->input coefficients of
   torchvision's ``_get_inverse_affine_matrix`` with center (0, 0);
@@ -10,7 +12,8 @@ exact-chain path the train step runs). The conventions are the same:
   (H-1)/2), evaluated in exactly that order so the float results, and so the
   rounded indices, are bit-equal to the JAX package's;
 - nearest rounds half to even (``torch.round``, as ``jnp.round``);
-  out-of-bounds samples are zero-filled;
+  out-of-bounds samples are zero-filled; bilinear zero-pads its four
+  corners like ``grid_sample``;
 - a rounded coordinate becomes an int32 as XLA's and CUDA's conversions
   make it: NaN gives 0, values beyond int32 saturate (``_to_int32``).
 
@@ -139,6 +142,65 @@ def gather_nearest(imgs, xs, ys, valid, h: int, w: int):
     return torch.where(valid[:, None], out, 0.0)
 
 
+def _gather_nhwc(imgs, iy, ix):
+    """``imgs`` (B, C, H, W) at integer (B, H, W) rows and columns, returned
+    as (B, H, W, C). Indexing the NHWC view keeps a channels_last input's
+    layout and needs no copy of it."""
+    bidx = torch.arange(imgs.shape[0], device=imgs.device).view(-1, 1, 1)
+    return imgs.permute(0, 2, 3, 1)[bidx, iy, ix]
+
+
+def _sample_nearest(imgs, x_in, y_in):
+    _, _, h, w = imgs.shape
+    ix = _to_int32(torch.round(x_in))
+    iy = _to_int32(torch.round(y_in))
+    valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    out = _gather_nhwc(imgs, iy.clamp(0, h - 1).long(), ix.clamp(0, w - 1).long())
+    return torch.where(valid[..., None], out, 0.0)
+
+
+def _sample_bilinear(imgs, x_in, y_in):
+    _, _, h, w = imgs.shape
+    x0 = torch.floor(x_in)
+    y0 = torch.floor(y_in)
+    wx1 = x_in - x0
+    wy1 = y_in - y0
+
+    def corner(xc, yc, wgt):
+        xi = _to_int32(xc)
+        yi = _to_int32(yc)
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        vals = _gather_nhwc(imgs, yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long())
+        return vals * (wgt * valid.to(torch.float32))[..., None]
+
+    return (corner(x0, y0, (1 - wx1) * (1 - wy1))
+            + corner(x0 + 1, y0, wx1 * (1 - wy1))
+            + corner(x0, y0 + 1, (1 - wx1) * wy1)
+            + corner(x0 + 1, y0 + 1, wx1 * wy1))
+
+
+def warp_affine(imgs, coeffs, mode: str = "nearest"):
+    """Warp (B, C, H, W) ``imgs`` by per-sample inverse (output->input)
+    coefficients (B, 6) in centered coordinates; zero outside the source.
+
+    ``mode`` is 'nearest' (torchvision's default; its indices are those of
+    ``compose_nearest_indices``, computed in the same order) or 'bilinear'.
+    The output is NCHW in shape and channels_last in memory whatever the
+    input's layout: the samples are gathered in NHWC.
+    """
+    if mode not in ("nearest", "bilinear"):
+        raise ValueError(f"mode {mode!r}")
+    b, _, h, w = imgs.shape
+    ys, xs = _grid(h, w, imgs.device)
+    ys, xs = ys.expand(b, h, w), xs.expand(b, h, w)
+    x_in = _coef(coeffs, 0, xs) * xs + _coef(coeffs, 1, xs) * ys + _coef(coeffs, 2, xs) \
+        + (w - 1) / 2.0
+    y_in = _coef(coeffs, 3, xs) * xs + _coef(coeffs, 4, xs) * ys + _coef(coeffs, 5, xs) \
+        + (h - 1) / 2.0
+    sample = _sample_nearest if mode == "nearest" else _sample_bilinear
+    return sample(imgs, x_in, y_in).permute(0, 3, 1, 2)
+
+
 def _chain_gather_nearest(imgs, coeff_list: Sequence[torch.Tensor]):
     """One-gather evaluation of sequential NEAREST warps, bit-exact: integer
     index maps compose exactly, so the chain needs no intermediate images."""
@@ -167,3 +229,19 @@ def inverse_warp_heatmaps(heatmaps, aug_param, ratio: float):
         aug_param, dtype=torch.float32, device=heatmaps.device).unbind(-1)
     return warp_affine_chain(heatmaps, angle, tx / ratio, ty / ratio, shx, shy,
                              scale)
+
+
+def affine_keypoints(keypoints, angle, shear_x, shear_y, trans_x, trans_y, scale,
+                     size: Tuple[float, float]):
+    """Forward keypoint transform of the dataset-side affine
+    (lib/transforms/keypoint_detection.py:137-167): rotate, shear and scale
+    about the image center, then translate. ``keypoints`` (..., K, 2); the
+    parameters broadcast against (...,); ``size`` is (width, height)."""
+    a, b, c, d = (t[..., None] for t in rss_coeffs(angle, shear_x, shear_y))
+    w, h = size
+    x = keypoints[..., 0] - w / 2.0
+    y = keypoints[..., 1] - h / 2.0
+    scale, trans_x, trans_y = (t[..., None] for t in (scale, trans_x, trans_y))
+    xn = scale * (a * x + b * y) + w / 2.0 + trans_x
+    yn = scale * (c * x + d * y) + h / 2.0 + trans_y
+    return torch.stack([xn, yn], dim=-1)

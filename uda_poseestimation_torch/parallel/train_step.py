@@ -22,6 +22,12 @@ iteration as in the reference. The per-sample occlusion draws come from a
 ``torch.Generator``, or are passed in as ``occlusion_draws`` so that a test
 can feed the draws ``jax.random`` makes in the JAX step.
 
+``view_builder`` (``--device-aug``, ``engine.DeviceAugPipeline``) makes a
+step take raw uint8 canvases and build every augmented view itself, on the
+step's device: the adapt step draws the views from its occlusion generator
+before the occlusion draws (the JAX step splits its key, views first), the
+pretrain step from the generator it is given; ``view_draws`` injects them.
+
 ``AdaptStepBundler`` and ``PretrainStepBundler`` (``--steps-per-dispatch``)
 run n steps per call, on the card as CUDA-graph replays of the step. So the
 step may be captured: it never copies from host memory or waits for the
@@ -276,22 +282,28 @@ def _style_views(style_model: StyleNet, x_s, x_t_teas, do_s2t: bool, alpha_s2t,
 
 
 def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, view_builder=None):
     """Mean-teacher adaptation step (train_human.py:305-458).
 
     Returns ``step(state, batch, lr, do_s2t=False, alpha_s2t=1.0,
-    do_t2s=False, alpha_t2s=1.0, generator=None, occlusion_draws=None)`` ->
-    ``(state, metrics, y_s)``. The gates are host booleans. ``generator``
-    draws the occlusion randomness on the step's device unless
-    ``occlusion_draws`` ({"u", "gumbel", "u1", "u2"}) is given.
+    do_t2s=False, alpha_t2s=1.0, generator=None, occlusion_draws=None,
+    view_draws=None)`` -> ``(state, metrics, y_s)``. The gates are host
+    booleans. ``generator`` draws the occlusion randomness on the step's
+    device unless ``occlusion_draws`` ({"u", "gumbel", "u1", "u2"}) is given.
+    With ``view_builder(raw_batch, generator=, draws=)`` the batch holds raw
+    canvases, from which the view builder makes the step's batch, drawing
+    from ``generator`` first unless ``view_draws`` is given.
     """
     dev = resolve_device(device)
 
     def step(state: UDAState, batch: Mapping, lr: float, do_s2t: bool = False,
              alpha_s2t: float = 1.0, do_t2s: bool = False, alpha_t2s: float = 1.0,
              generator: Optional[torch.Generator] = None,
-             occlusion_draws: Optional[Mapping] = None):
+             occlusion_draws: Optional[Mapping] = None,
+             view_draws: Optional[Mapping] = None):
         batch = _to_device(batch, dev)
+        if view_builder is not None:
+            batch = view_builder(batch, generator=generator, draws=view_draws)
         x_s = batch["image_s"]
         x_t_stu = batch["image_t_stu"]
         x_t_teas = batch["images_t_tea"]
@@ -367,18 +379,27 @@ def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
 
 
 def make_pretrain_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, view_builder=None):
     """Source-only supervised step (train_human.py:244-302).
 
-    Returns ``step(state, batch, lr, do_s2t=False, alpha=1.0)`` ->
-    ``(state, metrics, y_s)``; with ``do_s2t`` the source images are
-    stylized against ``batch["image_t_style"]`` and clamped.
+    Returns ``step(state, batch, lr, do_s2t=False, alpha=1.0,
+    generator=None, view_draws=None)`` -> ``(state, metrics, y_s)``; with
+    ``do_s2t`` the source images are stylized against
+    ``batch["image_t_style"]`` and clamped. With ``view_builder(raw_batch,
+    do_s2t, generator=, draws=)`` (``DeviceAugPipeline.
+    pretrain_view_builder``) the batch holds raw canvases, from which the
+    view builder makes the source views, and the style image when
+    ``do_s2t``, drawing from ``generator`` unless ``view_draws`` is given.
     """
     dev = resolve_device(device)
 
     def step(state: UDAState, batch: Mapping, lr: float, do_s2t: bool = False,
-             alpha: float = 1.0):
+             alpha: float = 1.0, generator: Optional[torch.Generator] = None,
+             view_draws: Optional[Mapping] = None):
         batch = _to_device(batch, dev)
+        if view_builder is not None:
+            batch = view_builder(batch, bool(do_s2t), generator=generator,
+                                 draws=view_draws)
         x_s = _nchw(batch["image_s"])
         if style_model is not None and do_s2t:
             with torch.no_grad():
@@ -518,7 +539,9 @@ class _StagedSteps:
         return buf
 
     def _stage_tree(self, prefix, tree):
-        return {k: self._stage(f"{prefix}/{k}", v) for k, v in tree.items() if v is not None}
+        return {k: (self._stage_tree(f"{prefix}/{k}", v) if isinstance(v, Mapping)
+                    else self._stage(f"{prefix}/{k}", v))
+                for k, v in tree.items() if v is not None}
 
     def _run(self, state, lr, inputs, cases, generator=None):
         """Run the step once per (inputs[j], cases[j]) in order; returns the
@@ -604,17 +627,20 @@ class AdaptStepBundler(_StagedSteps):
     there; ``_StagedSteps`` says how the port runs them).
 
     ``bundler(state, batches, lr, do_s2t, alpha_s2t, do_t2s, alpha_t2s,
-    generator=None, occlusion_draws=None)``: ``batches`` is a list of n host
-    batches, each gate and alpha a sequence of n host values (one draw per
-    iteration, as in the reference), ``occlusion_draws`` None or n draw
-    dicts. Returns ``(state, metrics stacked (n,), y_s of the last step)``,
-    what n calls of the step in order give. On the card there is one graph
-    per (do_s2t, do_t2s) case met, since the style switch branches on them.
+    generator=None, occlusion_draws=None, view_draws=None)``: ``batches`` is
+    a list of n host batches, each gate and alpha a sequence of n host
+    values (one draw per iteration, as in the reference), ``occlusion_draws``
+    None or n draw dicts, and with a ``view_builder`` ``view_draws`` None or
+    n view-draw trees (given together with ``occlusion_draws``). Returns
+    ``(state, metrics stacked (n,), y_s of the last step)``, what n calls of
+    the step in order give. On the card there is one graph per (do_s2t,
+    do_t2s) case met, since the style switch branches on them; with a view
+    builder the views are built inside it, from the registered generator.
     """
 
     def __init__(self, cfg: StepConfig, style_model: Optional[StyleNet] = None,
-                 device: DeviceLike = None):
-        super().__init__(make_adapt_step(cfg, style_model, device), device)
+                 device: DeviceLike = None, view_builder=None):
+        super().__init__(make_adapt_step(cfg, style_model, device, view_builder), device)
         self._style = style_model is not None
 
     def _invoke(self, state, static, lr, case, generator):
@@ -622,17 +648,20 @@ class AdaptStepBundler(_StagedSteps):
         return self._step(state, static["batch"], lr, do_s2t, static["alpha_s2t"],
                           do_t2s, static["alpha_t2s"],
                           generator=None if drawn else generator,
-                          occlusion_draws=static["draws"] if drawn else None)
+                          occlusion_draws=static["draws"] if drawn else None,
+                          view_draws=static.get("view_draws") if drawn else None)
 
     def __call__(self, state: UDAState, batches, lr: float, do_s2t, alpha_s2t, do_t2s,
                  alpha_t2s, generator: Optional[torch.Generator] = None,
-                 occlusion_draws=None):
+                 occlusion_draws=None, view_draws=None):
         n = len(batches)
         do_s2t, do_t2s = _gates(do_s2t, n, bool), _gates(do_t2s, n, bool)
         alpha_s2t, alpha_t2s = _gates(alpha_s2t, n, float), _gates(alpha_t2s, n, float)
         draws = [None] * n if occlusion_draws is None else list(occlusion_draws)
-        inputs = [{"batch": b, "alpha_s2t": a_s, "alpha_t2s": a_t, "draws": d}
-                  for b, a_s, a_t, d in zip(batches, alpha_s2t, alpha_t2s, draws)]
+        views = [None] * n if view_draws is None else list(view_draws)
+        inputs = [{"batch": b, "alpha_s2t": a_s, "alpha_t2s": a_t, "draws": d,
+                   "view_draws": v}
+                  for b, a_s, a_t, d, v in zip(batches, alpha_s2t, alpha_t2s, draws, views)]
         cases = [(s and self._style, t and self._style, d is not None)
                  for s, t, d in zip(do_s2t, do_t2s, draws)]
         return self._run(state, lr, inputs, cases,
@@ -644,25 +673,37 @@ class PretrainStepBundler(_StagedSteps):
     ``make_pretrain_step`` steps per call (the JAX package's
     ``PretrainStepBundler``), as ``AdaptStepBundler`` runs adapt steps.
 
-    ``bundler(state, batches, lr, do_s2t, alphas)``; a batch whose s2t gate
-    did not fire carries zeros as its style image when style is on, as the
-    engine gives it. On the card there is one graph per do_s2t case met.
+    ``bundler(state, batches, lr, do_s2t, alphas, generator=None,
+    view_draws=None)``; a batch whose s2t gate did not fire carries zeros as
+    its style image (or style canvases) when style is on, as the engine
+    gives it. On the card there is one graph per do_s2t case met. With a
+    ``view_builder`` the step builds its views from ``generator`` (the
+    graphs register it; the pipeline's own, ``DeviceAugPipeline.generator``)
+    unless ``view_draws`` (n trees) is given; the style image is built only
+    in the do_s2t case's graph.
     """
 
     def __init__(self, cfg: StepConfig, style_model: Optional[StyleNet] = None,
-                 device: DeviceLike = None):
-        super().__init__(make_pretrain_step(cfg, style_model, device), device)
+                 device: DeviceLike = None, view_builder=None):
+        super().__init__(make_pretrain_step(cfg, style_model, device, view_builder), device)
         self._style = style_model is not None
 
     def _invoke(self, state, static, lr, case, generator):
-        (do_s2t,) = case
-        return self._step(state, static["batch"], lr, do_s2t, static["alpha"])
+        do_s2t, drawn = case
+        return self._step(state, static["batch"], lr, do_s2t, static["alpha"],
+                          generator=None if drawn else generator,
+                          view_draws=static.get("view_draws") if drawn else None)
 
-    def __call__(self, state: UDAState, batches, lr: float, do_s2t, alphas):
+    def __call__(self, state: UDAState, batches, lr: float, do_s2t, alphas,
+                 generator: Optional[torch.Generator] = None, view_draws=None):
         n = len(batches)
         do_s2t, alphas = _gates(do_s2t, n, bool), _gates(alphas, n, float)
-        inputs = [{"batch": b, "alpha": a} for b, a in zip(batches, alphas)]
-        return self._run(state, lr, inputs, [(d and self._style,) for d in do_s2t])
+        views = [None] * n if view_draws is None else list(view_draws)
+        inputs = [{"batch": b, "alpha": a, "view_draws": v}
+                  for b, a, v in zip(batches, alphas, views)]
+        cases = [(d and self._style, v is not None) for d, v in zip(do_s2t, views)]
+        return self._run(state, lr, inputs, cases,
+                         None if view_draws is not None else generator)
 
 
 def make_eval_step(device: DeviceLike = None):

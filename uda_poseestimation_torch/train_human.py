@@ -14,9 +14,16 @@ phases (``AdaptStepBundler``, ``PretrainStepBundler``): CUDA-graph replays of
 the step on the card, the same step run eagerly on the CPU; the first step
 of each style-gate case in an epoch runs eagerly on the card too.
 
+``--device-aug`` moves every random view onto the device: the loaders give
+uint8 canvases (Resize, ToUint8Canvas) and ``engine.DeviceAugPipeline``
+draws and renders the views inside the steps (and their CUDA graphs), with
+the JAX package's deviation note (``ops/device_aug.py``). ``--decode-cache
+G`` then caches the training sets' decoded canvases, G GB shared by all
+loader workers (``data/loader.py::CachedDataset``); without
+``--device-aug`` it is ignored, as in JAX.
+
 Not ported yet, and refused at start with the ROADMAP item that brings
-them: ``--device-aug`` and ``--decode-cache`` (A9), the ``--dist-*``
-multi-process flags (A12). Datasets: every
+them: the ``--dist-*`` multi-process flags (A12). Datasets: every
 human dataset of the JAX registry (``data/__init__.py``), so the four
 ``train_human.py`` lines of ``script`` (f2r, s2h, s2l, r2h) run.
 
@@ -40,9 +47,11 @@ from . import data as datasets
 from . import models
 from .data import ForeverDataIterator, make_loader
 from .data import transforms as T
+from .data.loader import CachedDataset
 from .device import resolve_device
-from .engine import run_adapt_epoch, run_pretrain_epoch, run_validate
+from .engine import DeviceAugPipeline, run_adapt_epoch, run_pretrain_epoch, run_validate
 from .models import StyleNet
+from .ops.device_aug import DeviceAugConfig
 from .parallel import AdaptStepBundler, PretrainStepBundler, StepConfig, create_state, \
     make_adapt_step, make_eval_step, make_pretrain_step
 from .utils import CompleteLogger, multistep_lr
@@ -96,11 +105,36 @@ def build_transforms(args):
         tgt_train_transform_tea, val_transform
 
 
+def raw_canvas_transforms(args):
+    """``--device-aug``'s host transforms: decode and resize only, into
+    uint8 canvases; the views are drawn on the device. Returns the source,
+    base, student and teacher transforms."""
+    raw_view = T.Compose([T.IdentityAffine(), T.ToUint8Canvas()])
+    return (T.Compose([T.Resize(args.image_size), T.ToUint8Canvas()]),
+            T.Compose([T.Resize(args.image_size)]), raw_view, raw_view)
+
+
+def device_aug_configs(args):
+    """The source, student and teacher ``DeviceAugConfig`` of the CLI's
+    flags (the JAX trainer's)."""
+    common = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
+                  sigma=args.sigma)
+    src = DeviceAugConfig(resize_scale=tuple(args.resize_scale), rotation=args.rotation_stu,
+                          shear=tuple(args.shear_stu), translate=tuple(args.translate_stu),
+                          scale=tuple(args.scale_stu), color=args.color_stu,
+                          blur=args.blur_stu, use_rrc=True, **common)
+    stu = DeviceAugConfig(rotation=args.rotation_stu, shear=tuple(args.shear_stu),
+                          translate=tuple(args.translate_stu), scale=tuple(args.scale_stu),
+                          color=args.color_stu, blur=args.blur_stu, use_rrc=False, **common)
+    tea = DeviceAugConfig(rotation=args.rotation_tea, shear=tuple(args.shear_tea),
+                          translate=tuple(args.translate_tea), scale=tuple(args.scale_tea),
+                          color=args.color_tea, blur=args.blur_tea, use_rrc=False, **common)
+    return src, stu, tea
+
+
 def check_ported(args):
     """Raise for a flag whose machinery the port does not have yet."""
     unported = [
-        (args.device_aug, "--device-aug", "A9"),
-        (args.decode_cache > 0, "--decode-cache > 0", "A9"),
         (args.dist_coordinator is not None, "--dist-coordinator", "A12"),
         (args.dist_num_processes != 1, "--dist-num-processes != 1", "A12"),
         (args.dist_process_id != 0, "--dist-process-id != 0", "A12"),
@@ -128,12 +162,22 @@ def build_data(args, pin: bool) -> Data:
     order). ``pin`` page-locks the batches (a CUDA run)."""
     (src_train_transform, base_transform, tgt_train_transform_stu,
      tgt_train_transform_tea, val_transform) = build_transforms(args)
+    if args.device_aug:
+        (src_train_transform, base_transform, tgt_train_transform_stu,
+         tgt_train_transform_tea) = raw_canvas_transforms(args)
     image_size = (args.image_size, args.image_size)
     heatmap_size = (args.heatmap_size, args.heatmap_size)
 
+    def maybe_cache(ds):
+        # only the raw-canvas datasets: their transforms draw nothing
+        if args.device_aug and args.decode_cache > 0:
+            return CachedDataset(ds, max_bytes=args.decode_cache * 1e9)
+        return ds
+
     source_dataset = datasets.__dict__[args.source]
-    train_source_dataset = source_dataset(root=args.source_root, transforms=src_train_transform,
-                                          image_size=image_size, heatmap_size=heatmap_size)
+    train_source_dataset = maybe_cache(source_dataset(
+        root=args.source_root, transforms=src_train_transform,
+        image_size=image_size, heatmap_size=heatmap_size))
     train_source_loader = make_loader(train_source_dataset, args.batch_size, shuffle=True,
                                       num_workers=args.workers, drop_last=True,
                                       pin_memory=pin)
@@ -143,10 +187,10 @@ def build_data(args, pin: bool) -> Data:
     val_source_loader = make_loader(val_source_dataset, args.test_batch, pin_memory=pin)
 
     target_dataset = datasets.__dict__[args.target_train]
-    train_target_dataset = target_dataset(
+    train_target_dataset = maybe_cache(target_dataset(
         root=args.target_root, transforms_base=base_transform,
         transforms_stu=tgt_train_transform_stu, transforms_tea=tgt_train_transform_tea,
-        k=args.k, image_size=image_size, heatmap_size=heatmap_size)
+        k=args.k, image_size=image_size, heatmap_size=heatmap_size))
     train_target_loader = make_loader(train_target_dataset, args.batch_size, shuffle=True,
                                       num_workers=args.workers, drop_last=True,
                                       pin_memory=pin)
@@ -208,13 +252,37 @@ def _train(args, device, logger):
         style_model = load_style_net_files(StyleNet(), VGG_PATH, args.decoder_name)
         style_model.to(device=device, dtype=torch.bfloat16)  # frozen: bf16 storage
 
+    device_aug = None
+    views = {"adapt": None, "pretrain": None}
+    if args.device_aug:
+        if args.color_stu or args.color_tea:
+            warnings.warn(
+                "--device-aug applies ColorJitter in a fixed brightness->"
+                "contrast->saturation order (the host/reference path shuffles "
+                "the order per sample); factor distributions are identical")
+        if args.blur_stu or args.blur_tea:
+            warnings.warn(
+                "--device-aug uses an exact truncated Gaussian for blur "
+                "(PIL approximates it with three box blurs); radius draw "
+                "distribution is identical")
+        device_aug = DeviceAugPipeline(*device_aug_configs(args), k=args.k,
+                                       mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                                       seed=args.seed if args.seed is not None else 0,
+                                       device=device)
+        views = {"adapt": device_aug.view_builder,
+                 "pretrain": device_aug.pretrain_view_builder(style_model is not None)}
+
+    # the unbundled pretrain loop builds its views itself (as JAX's does)
     pretrain_step = make_pretrain_step(cfg, style_model=style_model, device=device)
-    adapt_step = make_adapt_step(cfg, style_model=style_model, device=device)
+    adapt_step = make_adapt_step(cfg, style_model=style_model, device=device,
+                                 view_builder=views["adapt"])
     eval_step = make_eval_step(device=device)
     bundlers = {}
     if args.steps_per_dispatch > 1:
-        bundlers = {"pretrain": PretrainStepBundler(cfg, style_model=style_model, device=device),
-                    "adapt": AdaptStepBundler(cfg, style_model=style_model, device=device)}
+        bundlers = {"pretrain": PretrainStepBundler(cfg, style_model=style_model, device=device,
+                                                    view_builder=views["pretrain"]),
+                    "adapt": AdaptStepBundler(cfg, style_model=style_model, device=device,
+                                              view_builder=views["adapt"])}
         if args.debug:
             warnings.warn("--steps-per-dispatch: --debug prediction images "
                           "are skipped during bundled epochs")
@@ -233,7 +301,10 @@ def _train(args, device, logger):
         restore(load_checkpoint(args.pretrain), teacher_source="student")
 
     def visualize(image, keypoint2d, name):
-        denorm = np.asarray(image) * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)
+        image = np.asarray(image)
+        if image.dtype == np.uint8:  # --device-aug raw canvases
+            image = image.astype(np.float32) / 255.0
+        denorm = image * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)
         img_u8 = np.clip(denorm * 255.0, 0, 255).astype(np.uint8)
         train_source_dataset.visualize(img_u8, keypoint2d,
                                        logger.get_image_path("{}.jpg".format(name)))
@@ -257,7 +328,8 @@ def _train(args, device, logger):
             state = run_pretrain_epoch(
                 state, pretrain_step, train_source_iter, train_target_iter, epoch, lr,
                 args, visualize if args.debug else None,
-                style_enabled=style_model is not None, bundler=bundlers.get("pretrain"))
+                style_enabled=style_model is not None, bundler=bundlers.get("pretrain"),
+                device_aug=device_aug)
         else:
             if epoch == args.pretrain_epoch:
                 restore(load_checkpoint(logger.get_checkpoint_path("best_pt")),
@@ -265,7 +337,8 @@ def _train(args, device, logger):
             state = run_adapt_epoch(
                 state, adapt_step, train_source_iter, train_target_iter, epoch, lr, args,
                 visualize if args.debug else None,
-                style_enabled=style_model is not None, bundler=bundlers.get("adapt"))
+                style_enabled=style_model is not None, bundler=bundlers.get("adapt"),
+                device_aug=device_aug)
 
         eval_model = state.student if epoch < args.pretrain_epoch else state.teacher
         source_val_acc = run_validate(eval_step, eval_model, val_source_loader, args)
@@ -393,10 +466,11 @@ def build_parser():
     parser.add_argument("--occlude-size", type=int, default=10, help="")
     # accepted for command-line parity; check_ported refuses what is not ported
     parser.add_argument("--device-aug", action="store_true",
-                        help="generate augmented views on device (not ported: ROADMAP A9)")
+                        help="generate the augmented views on the device (host only "
+                             "decodes and resizes)")
     parser.add_argument("--decode-cache", type=float, default=0.0,
-                        help="GB of decoded-canvas cache (not ported: ROADMAP A9); "
-                             "0 disables")
+                        help="GB of decoded-canvas cache shared by the loader workers "
+                             "(with --device-aug); 0 disables")
     parser.add_argument("--steps-per-dispatch", type=int, default=1,
                         help="iterations per bundler call (CUDA-graph replays on "
                              "the card); 1 disables")
