@@ -114,6 +114,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             each validation's seconds and items, and the parent's RSS after
             construction and at the end (/proc/self/statm, and getrusage
             for the peak). Needs Pillow and SciPy.
+10. decoder  AdaIN decoder pretraining (phase_decoder): the meanstd
+            StyleNet's decoder step alone at b=4, 256² (ms/step by CUDA
+            events and peak memory with TF32 off and on, TF32's losses
+            held against full float32's; the step's FLOPs and bound), one
+            step on the card against the CPU at 64², the AdaIN CLI
+            (uda_poseestimation_torch.adain.train_human) for 40 iterations
+            on the fake RHD and H3D trees (finite log lines, 2 PNGs, the
+            checkpoint; seconds per iteration and the loaders' wait), and
+            the r2h adapt run of 3 iterations with --decoder-name set to
+            that checkpoint (occlusion_warp 3 times).
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -2643,6 +2653,327 @@ def phase_trainer_pairs(device, work_dir):
     return launches
 
 
+# phase decoder: the reference's decoder batch (adain/train/train_human.py
+# loads 4 a batch whatever --batch_size says), full width
+DECODER_B = 4
+DECODER_STEPS = 20
+DECODER_CLI_ITERS = 40
+# TF32 tensor-core peak of the H100 SXM (dense; NVIDIA data sheet)
+TF32_FLOPS = 495e12
+
+
+def decoder_net(seed, device):
+    """The decoder trainer's meanstd StyleNet with random weights from
+    ``seed``, the decoder's last kernel x100 (a random decoder's output is
+    ~1e-3, and its style losses would be eps-dominated)."""
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet
+
+    net = StyleNet("meanstd")
+    net.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net.decoder[28].weight.mul_(100.0)
+    return net.to(device)
+
+
+def decoder_images(seed, b, size, device):
+    """A content and a style batch, NCHW, ImageNet-normalized uniform noise."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    mean = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
+    std = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
+    return [((torch.rand(b, 3, size, size, generator=g) - mean) / std).to(device)
+            for _ in range(2)]
+
+
+def decoder_step_flops(net, content):
+    """The multiply-adds of one decoder step, x2, from the convolutions'
+    shapes (hooks on one forward): three encodes (style, content, g_t),
+    g_t's input gradient through the encoder (one more encode), the decoder's
+    forward, its weight gradients and its input gradients (all but the first
+    conv's: t needs none)."""
+    import torch
+
+    per_conv = []
+
+    def hook(m, inputs, out):
+        per_conv.append(2 * out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1])
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            feat = net.encode(content)
+            n_enc = len(per_conv)
+            net.decode(feat)
+    finally:
+        for h in handles:
+            h.remove()
+    enc, dec = sum(per_conv[:n_enc]), sum(per_conv[n_enc:])
+    return 4 * enc + 3 * dec - per_conv[n_enc]
+
+
+@contextlib.contextmanager
+def tf32(cudnn, matmul):
+    """cuDNN's and cuBLAS's TF32 switches set inside, restored after (the
+    script runs with both off)."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _decoder_case(device, content, style, tf32_on):
+    """One case of part 1: the first step's outputs from the seed's weights,
+    2 warm-ups, then DECODER_STEPS steps timed by CUDA events, and the peak
+    memory."""
+    import torch
+
+    from uda_poseestimation_torch.adain_engine import make_decoder_step
+
+    with tf32(tf32_on, tf32_on):
+        net = decoder_net(0, device)
+        step, _ = make_decoder_step(net, 1.0, 1.0, 1e-5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = [t.clone() for t in step(content, style)]
+        for _ in range(2):
+            step(content, style)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(DECODER_STEPS):
+            step(content, style)
+        end.record()
+        torch.cuda.synchronize()
+        # the host's own time for a step: each of 3 steps enqueued behind
+        # ~50 ms of device work, with the launch queue empty
+        host_ms = []
+        for _ in range(3):
+            torch.cuda._sleep(50 * SLEEP_CYCLES)
+            h0 = time.perf_counter()
+            step(content, style)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            torch.cuda.synchronize()
+    return first, {"ms_per_step": start.elapsed_time(end) / DECODER_STEPS,
+                   "host_ms_per_step": statistics.median(host_ms),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _cli_aug_flags():
+    """The ``_stu``/``_tea`` augmentation flags of ``script``'s r2h line,
+    which the AdaIN CLI takes too."""
+    line, flags, keep = script_line("r2h"), [], False
+    for tok in line:
+        if re.match(r"-+[a-z]", tok):  # a flag, not a negative value
+            keep = tok.endswith(("_stu", "_tea"))
+        if keep:
+            flags.append(tok)
+    return flags
+
+
+def phase_decoder(device, work_dir):
+    """AdaIN decoder pretraining (ROADMAP A11, human half), in four parts:
+
+    1. the step alone at full width: the meanstd StyleNet with random
+       weights from a seed, b=4, 256², float32, the CLI's weights and lr;
+       ms/step by CUDA events over DECODER_STEPS steps after 2 warm-ups,
+       and the peak memory, with TF32 off and on, and the host's time for a
+       step with the card busy (median of 3); TF32's first-step losses and
+       g_t held against full float32's within 5e-2 of the largest value,
+       beside the step's FLOPs and its bound;
+    2. one step on the card against the CPU, TF32 off, 64², b=2, from the
+       same weights: losses, g_t and the decoder's gradients (each tensor)
+       within 1e-3 of the largest value (cuDNN and the CPU sum in other
+       orders through ~40 layers), the decoder's Adam update within 5e-2 in
+       norm: Adam's first update is ~sign(g)·lr, so an entry whose gradient
+       is near 0 may flip its sign and move by 2·lr (the sign flips are
+       counted);
+    3. the CLI (``uda_poseestimation_torch.adain.train_human.main``) in this
+       process on fake RHD and H3D trees, RenderedHandPose -> Hand3DStudio_mt
+       with the r2h line's augmentation flags, 256², DECODER_CLI_ITERS
+       iterations, a checkpoint and a PNG every 20, at PyTorch's default
+       TF32 settings (cuDNN's on): the log's finite lines, the PNGs and the
+       checkpoint, the seconds per iteration (between step calls) and the
+       time spent waiting for the loaders' batches;
+    4. the chain: the port's ``train_human`` r2h adapt run, 3 iterations,
+       with ``--decoder-name`` set to part 3's checkpoint; occlusion_warp
+       launches 3 times.
+
+    Returns the launches of parts 1, 3 and 4."""
+    import copy
+    import multiprocessing
+
+    import torch
+
+    from uda_poseestimation_torch import adain_engine, train_human
+    from uda_poseestimation_torch.adain import train_human as adain_cli
+
+    t0 = time.perf_counter()
+    none = dict.fromkeys(_counters(), 0)
+    launches = {}
+
+    # 1. the step alone
+    content, style = decoder_images(0, DECODER_B, MAIN_IMAGE, device)
+    _reset_counts()
+    firsts, records = {}, {}
+    for name, tf32_on in (("f32", False), ("tf32", True)):
+        firsts[name], records[name] = _decoder_case(device, content, style, tf32_on)
+    launches["decoder_step"] = _read_counts()
+    ref = firsts["f32"]
+    errs = {key: _rel_max(firsts["tf32"][i], ref[i])
+            for i, key in ((1, "loss_c"), (2, "loss_s"), (3, "g_t"))}
+    records["tf32"]["rel_err_vs_f32"] = errs
+    if not max(errs.values()) <= 5e-2:
+        raise AssertionError(f"decoder step tf32 against f32: {errs} > 5e-2")
+    flops = decoder_step_flops(decoder_net(0, device), content)
+    emit({"phase": "decoder", "part": "step", "batch": DECODER_B, "size": MAIN_IMAGE,
+          "steps_timed": DECODER_STEPS, "cases": records,
+          "losses_f32": [float(t) for t in ref[:3]], "flops_per_step": flops,
+          "bound_ms_f32": flops / F32_FLOPS * 1e3, "bound_ms_tf32": flops / TF32_FLOPS * 1e3,
+          "launches": launches["decoder_step"]})
+    if launches["decoder_step"] != none:
+        raise AssertionError(f"decoder step launched {launches['decoder_step']}")
+    del content, style
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. card against CPU
+    nets = {"cpu": decoder_net(3, "cpu")}
+    nets["card"] = copy.deepcopy(nets["cpu"]).to(device)
+    dec0 = {k: v.clone() for k, v in nets["cpu"].decoder.state_dict().items()}
+    outs = {}
+    for side, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        c, s = decoder_images(4, 2, 64, dev)
+        step, _ = adain_engine.make_decoder_step(nets[side], 1.0, 1.0, 1e-4)
+        outs[side] = [t.cpu() for t in step(c, s)]
+    upd = {side: torch.cat([(v.cpu() - dec0[k]).flatten()
+                            for k, v in nets[side].decoder.state_dict().items()])
+           for side in nets}
+    flipped = int(((upd["card"] * upd["cpu"]) < 0).sum())
+    parity = {"loss": _rel_max(outs["card"][0], outs["cpu"][0]),
+              "loss_c": _rel_max(outs["card"][1], outs["cpu"][1]),
+              "loss_s": _rel_max(outs["card"][2], outs["cpu"][2]),
+              "g_t": _rel_max(outs["card"][3], outs["cpu"][3]),
+              "grad": max(_rel_max(a.grad, b.grad) for a, b in zip(
+                  nets["card"].decoder.parameters(), nets["cpu"].decoder.parameters())),
+              "adam_update_norm": _rel_norm(upd["card"], upd["cpu"])}
+    emit({"phase": "decoder", "part": "card_vs_cpu", "batch": 2, "size": 64, "rel_err": parity,
+          "adam_update_sign_flips": flipped, "decoder_parameters": upd["cpu"].numel()})
+    if not (max(parity[k] for k in ("loss", "loss_c", "loss_s", "g_t", "grad")) <= 1e-3
+            and parity["adam_update_norm"] <= 5e-2):
+        raise AssertionError(f"decoder step card against CPU: {parity}")
+
+    # 3. the CLI
+    roots = {"rhd": os.path.join(work_dir, "rhd"), "h3d": os.path.join(work_dir, "h3d")}
+    if not os.path.isdir(roots["rhd"]):
+        write_fake_rhd(roots["rhd"])
+    if not os.path.isdir(roots["h3d"]):
+        write_fake_h3d(roots["h3d"])
+    write_style_weights(work_dir)
+    exp = "decoder_r2h"
+    args = adain_cli.build_parser().parse_args(
+        ["--source", "RenderedHandPose", "--target", "Hand3DStudio_mt",
+         "--source_root", roots["rhd"], "--target_root", roots["h3d"],
+         "--vgg", "saved_models/vgg_normalised.pth", "--image-size", str(MAIN_IMAGE),
+         "--max_iter", str(DECODER_CLI_ITERS), "--save_model_interval", "20",
+         "--log_img_interval", "20", "--exp_name", exp, "--device", str(device)]
+        + _cli_aug_flags())
+    step_stamps, waits = [], []
+    make_step, forever = adain_engine.make_decoder_step, adain_cli.ForeverDataIterator
+
+    def timed_make_step(*a, **k):
+        step, opt = make_step(*a, **k)
+        return clocked(step, step_stamps), opt
+
+    class TimedIterator(forever):
+        def __next__(self):
+            t = time.perf_counter()
+            out = super().__next__()
+            waits.append(time.perf_counter() - t)
+            return out
+
+    cwd = os.getcwd()
+    adain_engine.make_decoder_step = timed_make_step
+    adain_cli.ForeverDataIterator = TimedIterator
+    os.chdir(work_dir)
+    try:
+        printed = io.StringIO()
+        # PyTorch's defaults: cuDNN's TF32 on, cuBLAS's off
+        with contextlib.redirect_stdout(printed), tf32(True, False):
+            _reset_counts()
+            r0 = time.perf_counter()
+            adain_cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - r0
+            launches["decoder_cli"] = _read_counts()
+        gc.collect()
+        if multiprocessing.active_children():
+            raise AssertionError(f"the decoder CLI left {multiprocessing.active_children()}")
+        root = os.path.join("logs", exp)
+        with open(os.path.join(root, "log_" + exp + ".txt")) as f:
+            lines = _finite_lines(f.read(), ("iter: ",))
+        pngs = sorted(os.listdir(os.path.join(root, "save_imgs", "save_img_" + exp)))
+        checkpoint = os.path.join(root, "saved_model", "decoder_" + exp + ".pth.tar")
+        if (len(lines) != DECODER_CLI_ITERS or pngs != ["0.png", "20.png"]
+                or not os.path.isfile(checkpoint) or "WARNING" in printed.getvalue()
+                or launches["decoder_cli"] != none):
+            raise AssertionError(f"decoder CLI: {len(lines)} lines, PNGs {pngs}, launches "
+                                 f"{launches['decoder_cli']}, {printed.getvalue()[-500:]}")
+        periods = [b - a for a, b in zip(step_stamps, step_stamps[1:])]
+        fetch = [a + b for a, b in zip(waits[::2], waits[1::2])]
+        emit({"phase": "decoder", "part": "cli", "iters": DECODER_CLI_ITERS, "wall_s": wall,
+              "wall_s_per_iter": wall / DECODER_CLI_ITERS,
+              "first_step_s": step_stamps[0] - r0,
+              "period_s_median": statistics.median(periods[1:]),
+              "fetch_s_median": statistics.median(fetch[1:]),
+              "step_ms_f32_part1": records["f32"]["ms_per_step"],
+              "step_ms_tf32_part1": records["tf32"]["ms_per_step"],
+              "log": [lines[0], lines[-1]], "pngs": pngs, "launches": launches["decoder_cli"],
+              "period_s_each": periods, "fetch_s_each": fetch})
+
+        # 4. the chain: the trained decoder in the r2h adapt run
+        workers = min(8, os.cpu_count() or 1)
+        targs = train_human.build_parser().parse_args(script_line("r2h") + [
+            "-a", TRAINER_ARCH, "-b", str(MAIN_B), "--test-batch", str(MAIN_B),
+            "--image-size", str(MAIN_IMAGE), "--heatmap-size", str(MAIN_HEATMAP),
+            "--epochs", "1", "-i", "3", "-p", "1", "-j", str(workers),
+            "--pretrain-epoch", "-1", "--decoder-name", checkpoint, "--device", str(device),
+            "--log", "logs/decoder_chain"])
+        targs.source_root, targs.target_root = roots["rhd"], roots["h3d"]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _reset_counts()
+            r0 = time.perf_counter()
+            train_human.main(targs)
+            torch.cuda.synchronize()
+            chain_wall = time.perf_counter() - r0
+            launches["decoder_chain"] = _read_counts()
+        gc.collect()
+        if multiprocessing.active_children():
+            raise AssertionError(f"the chained run left {multiprocessing.active_children()}")
+        if launches["decoder_chain"] != dict(none, occlusion_warp=3):
+            raise AssertionError(f"chained run: launches {launches['decoder_chain']}")
+        log_dir = f"logs/decoder_chain_{TRAINER_ARCH}"
+        (log,) = [f for f in os.listdir(log_dir) if f.startswith("train-")]
+        with open(os.path.join(log_dir, log)) as f:
+            chain_lines = _finite_lines(f.read(), ("Epoch: 0 ",))
+        _finite_lines(printed.getvalue(), ("Epoch: [0][",))
+        emit({"phase": "decoder", "part": "chain", "decoder_name": checkpoint,
+              "wall_s": chain_wall, "launches": launches["decoder_chain"], "log": chain_lines})
+    finally:
+        os.chdir(cwd)
+        adain_engine.make_decoder_step, adain_cli.ForeverDataIterator = make_step, forever
+    emit({"phase": "decoder", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2720,6 +3051,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pair_launches = timed("trainer_pairs", phase_trainer_pairs, device, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        decoder_launches = timed("decoder", phase_decoder, device, work_dir)
     emit({"phase_seconds": seconds})
     # each row's launches are those of the path it lies on (warp_gather: none),
     # in all and in the last measured adapt step; then every path's own count
@@ -2728,7 +3062,8 @@ def main(argv=None) -> int:
                **{f"device_aug_{k}": v for k, v in device_aug_launches.items()},
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
-               **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()}}
+               **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()},
+               **decoder_launches}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):
         rows[name]["launches"] = run["launches"][name]

@@ -7,10 +7,13 @@ with ``device="cpu"``.
 
 ``device_scalar`` and ``device_vector`` make the steps' constants on their
 device without a copy from host memory, which a CUDA graph's capture forbids.
+``full_f32`` runs float32 products in full float32 where the JAX package
+asks for ``precision="float32"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -47,3 +50,15 @@ def device_vector(values, device, dtype: torch.dtype = torch.float32) -> torch.T
     """A 1-d ``dtype`` tensor of Python numbers on ``device``, made by fills
     as ``device_scalar`` makes one."""
     return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
+
+
+@contextlib.contextmanager
+def full_f32(device: torch.device):
+    """float32 products: TF32 and autocast off inside, restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device.type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

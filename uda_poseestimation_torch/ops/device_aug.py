@@ -41,7 +41,6 @@ TF32 and autocast off, whatever the caller set.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Mapping, Optional, Tuple
@@ -49,7 +48,7 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import device_vector
+from ..device import device_vector, full_f32
 from .affine import affine_keypoints, inverse_affine_coeffs, warp_affine
 from .heatmap import generate_target_batch
 
@@ -183,18 +182,6 @@ def draw_view(cfg: DeviceAugConfig, shape, canvas: int, device=None,
 # rendering
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def _full_f32(device: torch.device):
-    """float32 products: TF32 and autocast off inside, restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.autocast(device.type, enabled=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _weight_mat(in_size: int, out_size: int, scale, translation):
     """(N, out, in) linear resample weights of ``scale_and_translate``
     (``jax._src.image.scale.compute_weight_mat`` with the triangle kernel
@@ -223,7 +210,7 @@ def rrc_image(images, i, j, side, out_size: int):
     scale = out_size / side
     wy = _weight_mat(s_h, out_size, scale, -i * scale)
     wx = _weight_mat(s_w, out_size, scale, -j * scale)
-    with _full_f32(images.device):
+    with full_f32(images.device):
         rows = torch.bmm(wy, images.reshape(n, s_h, s_w * c))  # (N, out, S_w * C)
         cols = rows.view(n, out_size, s_w, c).transpose(1, 2).reshape(n, s_w, out_size * c)
         out = torch.bmm(wx, cols)  # (N, out_x, out_y * C)

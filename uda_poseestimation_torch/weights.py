@@ -141,22 +141,31 @@ def load_style_net(style_net: nn.Module, params: Mapping) -> nn.Module:
     return style_net
 
 
+def load_by_key(module: nn.Module, path: str) -> nn.Module:
+    """Load a torch state dict with the reference's keys from ``path`` into
+    ``module``, taking the entries that ``module`` has: ``vgg_normalised.pth``
+    may hold the whole vgg_normalised, of which the encoder is the first 31
+    layers. Raises ``KeyError`` when the file lacks one of ``module``'s
+    entries."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"{path}: no value for {missing[:5]} ({len(missing)} entries)")
+    module.load_state_dict({k: sd[k] for k in own})
+    return module
+
+
 def load_style_net_files(style_net: nn.Module, vgg_path: str, decoder_path: str) -> nn.Module:
     """Load ``vgg_normalised.pth`` and a decoder ``.pth`` into ``style_net``.
 
     Both are torch state dicts with the reference's Sequential-index keys,
     which are the port's ``VGGEncoder`` and ``Decoder`` keys, so they load
-    as they are (the JAX package converts them, in
-    ``tools/port_torch_weights.py::load_style_net_params``). The vgg file
-    may hold the whole vgg_normalised: the encoder takes the entries of its
-    first 31 layers. Decoders saved by the JAX package's AdaIN pretraining
-    in Flax's msgpack format are not read here.
+    as they are (``load_by_key``; the JAX package converts them, in
+    ``tools/port_torch_weights.py::load_style_net_params``). Decoders saved
+    by the JAX package's AdaIN pretraining in Flax's msgpack format are not
+    read here.
     """
-    for module, path in ((style_net.encoder, vgg_path), (style_net.decoder, decoder_path)):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        own = module.state_dict()
-        missing = [k for k in own if k not in sd]
-        if missing:
-            raise KeyError(f"{path}: no value for {missing[:5]} ({len(missing)} entries)")
-        module.load_state_dict({k: sd[k] for k in own})
+    load_by_key(style_net.encoder, vgg_path)
+    load_by_key(style_net.decoder, decoder_path)
     return style_net
