@@ -124,6 +124,21 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             checkpoint; seconds per iteration and the loaders' wait), and
             the r2h adapt run of 3 iterations with --decoder-name set to
             that checkpoint (occlusion_warp 3 times).
+11. trainer_animals  the two animal lines of ``script`` (train_animal.py,
+            train_animal_other.py) through train_animal.main in this
+            process at the same width, -j as in trainer_cli, on fake
+            synthetic-animal, TigDog and AnimalPose trees that the phase
+            writes (ANIMAL_TREES): the train_animal line adapting (3
+            iterations), pretraining, bundled with --steps-per-dispatch 4
+            (4 iterations), and with a decoder that the AdaIN animal CLI
+            (uda_poseestimation_torch.adain.train_animal) trains for 40
+            iterations first and --decode-cache 1, over 6 iterations;
+            the train_animal_other line adapting. occlusion_warp once an
+            adapt iteration, never in pretraining or the AdaIN CLI; finite
+            epoch lines with both category parts, the AdaIN run's 2 PNGs and
+            checkpoint, no worker left; one line per run as in
+            trainer_pairs, each category's validation included, and the
+            frame caches' hits and bytes.
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -2358,10 +2373,10 @@ FAKE_TREES = {
 }
 
 
-def _frames(rng, directory, sizes, k, margin=0.15):
+def _frames(rng, directory, sizes, k, margin=0.15, ext="jpg"):
     """A distinct blob frame of each (h, w) of ``sizes`` with ``k`` blobs,
-    in ``directory`` (frame0.jpg, ...); their paths. The names of a tree
-    are hard links to these, in turn."""
+    in ``directory`` (frame0.jpg, ..., or PNG); their paths. The names of a
+    tree are hard links to these, in turn."""
     import numpy as np
     from PIL import Image
 
@@ -2370,8 +2385,9 @@ def _frames(rng, directory, sizes, k, margin=0.15):
     for i, (h, w) in enumerate(sizes):
         kp = np.stack([rng.uniform(margin * w, (1 - margin) * w, k),
                        rng.uniform(margin * h, (1 - margin) * h, k)], axis=1)
-        paths.append(os.path.join(directory, "frame%d.jpg" % i))
-        Image.fromarray(blob_frame(rng, h, w, kp)).save(paths[-1], quality=90)
+        paths.append(os.path.join(directory, f"frame{i}.{ext}"))
+        Image.fromarray(blob_frame(rng, h, w, kp)).save(
+            paths[-1], **({"quality": 90} if ext == "jpg" else {}))
     return paths
 
 
@@ -2769,7 +2785,12 @@ def _decoder_case(device, content, style, tf32_on):
 def _cli_aug_flags():
     """The ``_stu``/``_tea`` augmentation flags of ``script``'s r2h line,
     which the AdaIN CLI takes too."""
-    line, flags, keep = script_line("r2h"), [], False
+    return _cli_aug_flags_of(script_line("r2h"))
+
+
+def _cli_aug_flags_of(line):
+    """The ``_stu``/``_tea`` flags of a ``script`` line and their values."""
+    flags, keep = [], False
     for tok in line:
         if re.match(r"-+[a-z]", tok):  # a flag, not a negative value
             keep = tok.endswith(("_stu", "_tea"))
@@ -2974,6 +2995,354 @@ def phase_decoder(device, work_dir):
     return launches
 
 
+# phase trainer_animals' fake trees (PERF.md section 4 states the sizes that
+# no source records): the synthetic renders at 640x480, the size the dataset
+# clips its boxes to; TigDog at 640x360 (a 16:9 video frame) in shots of 8
+# frames; AnimalPose at 500x375. Each training set holds two or more batches
+# of 32, each evaluation set at most 32 items a category (--test-batch 1).
+ANIMAL_TREES = {
+    "synthetic": {"animals": ("horse", "tiger"), "train": 56, "valid": 8, "frame": (480, 640),
+                  "distinct_frames": 16},
+    "tigdog": {"animals": ("horse", "tiger"), "shots": 7, "frames_per_shot": 8, "train": 40,
+               "valid": 16, "frame": (360, 640), "distinct_frames": 16},
+    "animal_pose": {"animals": ("dog", "sheep"), "train": 40, "test": 16, "frame": (375, 500),
+                    "distinct_frames": 16},
+}
+ANIMAL_MEAN_STD = ([0.3999, 0.3909, 0.3871], [0.2589, 0.2431, 0.2291])
+# blobs a fake frame: the annotations are drawn apart from them, and a blob
+# costs an exp over the whole frame when the trees are written
+ANIMAL_BLOBS = 6
+
+
+def _save_mean(path, mean, std):
+    import torch
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"mean": torch.tensor(mean), "std": torch.tensor(std)}, path)
+
+
+def _box_keypoints(rng, n, k, h, w, margin=0.15):
+    """n sets of k (x, y) inside the middle of an h x w frame."""
+    import numpy as np
+
+    return np.stack([rng.uniform(margin * w, (1 - margin) * w, (n, k)),
+                     rng.uniform(margin * h, (1 - margin) * h, (n, k))], axis=-1)
+
+
+def write_fake_synthetic_animals(root):
+    """The synthetic-animal layout under ``root/animal_data`` and
+    ``root/cached_data``: horse and tiger renders (PNG, names linked to
+    ``distinct_frames`` renders each), ``clean_data/keypoints_18.json`` (18
+    visible keypoints, the box, train and valid indices, image paths
+    relative to ``animal_data``'s parent as the reference writes them) and
+    the 'all' mean file; and ``keypoints_14.json``, which serves the same
+    renders as hound and sheep with their first 14 keypoints."""
+    import numpy as np
+
+    cfg = ANIMAL_TREES["synthetic"]
+    h, w = cfg["frame"]
+    n = cfg["train"] + cfg["valid"]
+    rng = np.random.RandomState(7)
+    data = {}
+    for animal in cfg["animals"]:
+        rel = f"animal_data/synthetic_animal/{animal}_combineds5r5_texture"
+        frames = _frames(rng, os.path.join(root, "frames", animal),
+                         [(h, w)] * cfg["distinct_frames"], ANIMAL_BLOBS, ext="png")
+        names = [f"{rel}/{i:04d}_img.png" for i in range(n)]
+        _link(frames, [os.path.join(root, name) for name in names])
+        kp = _box_keypoints(rng, n, 18, h, w)
+        data[animal] = {
+            "keypoints": np.concatenate([kp, np.ones((n, 18, 1))], -1).tolist(),
+            "imgpath": names,
+            "bbox": [[float(p[:, 0].min()), float(p[:, 0].max()), float(p[:, 1].min()),
+                      float(p[:, 1].max())] for p in kp],
+            "train_idxs": list(range(cfg["train"])), "valid_idxs": list(range(cfg["train"], n))}
+    clean = os.path.join(root, "animal_data", "clean_data")
+    os.makedirs(clean)
+    _write_json(os.path.join(clean, "keypoints_18.json"), data)
+    other = {o: dict(data[a], keypoints=[kp[:14] for kp in data[a]["keypoints"]])
+             for o, a in (("hound", "horse"), ("sheep", "tiger"))}
+    _write_json(os.path.join(clean, "keypoints_14.json"), other)
+    _save_mean(os.path.join(root, "cached_data", "synthetic_animal", "all_combineds5r5_texture",
+                            "mean.pth.tar"), *ANIMAL_MEAN_STD)
+
+
+def write_fake_tigdog(root):
+    """TigDog's layout (behaviorDiscovery2.0): per animal ``ranges.mat``
+    (shot, first frame, last frame), a ``landmarks/<shot>.mat`` per shot
+    (18 keypoints and their visibility per frame), the frames, and the
+    video-level train/valid index files under ``cached_data/real_animal``."""
+    import numpy as np
+    from scipy.io import savemat
+
+    cfg = ANIMAL_TREES["tigdog"]
+    h, w = cfg["frame"]
+    rng = np.random.RandomState(8)
+    base = os.path.join(root, "animal_data", "behaviorDiscovery2.0")
+    for animal in cfg["animals"]:
+        frames = _frames(rng, os.path.join(root, "frames", "tigdog_" + animal),
+                         [(h, w)] * cfg["distinct_frames"], ANIMAL_BLOBS)
+        n = cfg["shots"] * cfg["frames_per_shot"]
+        _link(frames, [os.path.join(base, animal, "%08d.jpg" % (i + 1)) for i in range(n)])
+        ranges = []
+        os.makedirs(os.path.join(base, "landmarks", animal))
+        for shot in range(cfg["shots"]):
+            first = shot * cfg["frames_per_shot"] + 1
+            ranges.append([shot + 1, first, first + cfg["frames_per_shot"] - 1])
+            cells = np.empty((cfg["frames_per_shot"], 1), dtype=object)
+            for f, kp in enumerate(_box_keypoints(rng, cfg["frames_per_shot"], 18, h, w)):
+                rec = np.zeros((1, 1), dtype=[("coord", "O"), ("vis", "O")])
+                rec[0, 0]["coord"] = kp
+                rec[0, 0]["vis"] = (rng.rand(18, 1) > 0.1).astype(np.float64)
+                cells[f, 0] = rec
+            savemat(os.path.join(base, "landmarks", animal, f"{shot + 1}.mat"),
+                    {"landmarks": cells})
+        os.makedirs(os.path.join(base, "ranges", animal))
+        savemat(os.path.join(base, "ranges", animal, "ranges.mat"),
+                {"ranges": np.asarray(ranges, np.int64)})
+        cached = os.path.join(root, "cached_data", "real_animal", animal)
+        os.makedirs(cached)
+        order = rng.permutation(n)
+        np.save(os.path.join(cached, "train_idxs_by_video.npy"), np.sort(order[:cfg["train"]]))
+        np.save(os.path.join(cached, "valid_idxs_by_video.npy"),
+                np.sort(order[cfg["train"]:cfg["train"] + cfg["valid"]]))
+
+
+def write_fake_animal_pose(root):
+    """AnimalPose's layout: ``animal-pose/images``, the ``keypoints.json``
+    image map, and per animal the train/test annotation arrays (a box, 20
+    keypoints with visibility, category 5 or 2) under
+    ``cached_data/real_animal_pose``, with the 'all' mean file
+    (``tests/test_animal_data.py::fake_animal_pose``'s recipe, larger)."""
+    import numpy as np
+
+    cfg = ANIMAL_TREES["animal_pose"]
+    h, w = cfg["frame"]
+    rng = np.random.RandomState(9)
+    images_dir = os.path.join(root, "animal_data", "animal-pose", "images")
+    images = {}
+    for animal, category in zip(cfg["animals"], (5, 2)):
+        frames = _frames(rng, os.path.join(root, "frames", "pose_" + animal),
+                         [(h, w)] * cfg["distinct_frames"], ANIMAL_BLOBS)
+        n = cfg["train"] + cfg["test"]
+        names = [f"{animal}_{i}.jpg" for i in range(n)]
+        _link(frames, [os.path.join(images_dir, name) for name in names])
+        annos = []
+        for i, kp in enumerate(_box_keypoints(rng, n, 20, h, w)):
+            images[f"{animal}_{i}"] = names[i]
+            vis = (rng.rand(20, 1) > 0.1).astype(np.float64)
+            annos.append({"image_id": f"{animal}_{i}",
+                          "bbox": [float(kp[:, 0].min()) - 10, float(kp[:, 1].min()) - 10,
+                                   float(kp[:, 0].max()) + 10, float(kp[:, 1].max()) + 10],
+                          "keypoints": np.concatenate([kp, vis], -1).tolist(),
+                          "num_keypoints": 20, "category_id": category})
+        cached = os.path.join(root, "cached_data", "real_animal_pose", animal)
+        os.makedirs(cached)
+        np.save(os.path.join(cached, "train_anno.npy"),
+                np.array(annos[:cfg["train"]], dtype=object))
+        np.save(os.path.join(cached, "test_anno.npy"),
+                np.array(annos[cfg["train"]:], dtype=object))
+    _write_json(os.path.join(root, "animal_data", "animal-pose", "keypoints.json"),
+                {"images": images})
+    _save_mean(os.path.join(root, "cached_data", "real_animal_pose", "all", "mean.pth.tar"),
+               [0.4042, 0.3977, 0.3974], [0.25, 0.24, 0.23])
+
+
+def animal_script_line(program):
+    """The flags of ``script``'s ``train_animal.py`` or
+    ``train_animal_other.py`` line."""
+    import shlex
+
+    with open(os.path.join(REPO, "script")) as f:
+        (line,) = [shlex.split(ln)[2:] for ln in f if ln.startswith(f"python {program} ")]
+    return line
+
+
+# phase trainer_animals' runs: (name, program, extra flags, occlusion_warp
+# launches); "{decoder}" is the checkpoint of the AdaIN run, "{two_passes}"
+# the iterations of two passes over the synthetic training set
+ANIMAL_RUNS = (
+    ("adapt", "train_animal.py", ["--pretrain-epoch", "-1", "-i", "3"], 3),
+    ("pretrain", "train_animal.py", ["--pretrain-epoch", "1", "-i", "3"], 0),
+    ("other_adapt", "train_animal_other.py", ["--pretrain-epoch", "-1", "-i", "3"], 3),
+    ("adapt_bundled", "train_animal.py",
+     ["--pretrain-epoch", "-1", "--steps-per-dispatch", "4", "-i", "4"], 4),
+    ("adain", None, [], 0),
+    ("adapt_trained_decoder_decode_cache", "train_animal.py",
+     ["--pretrain-epoch", "-1", "-i", "{two_passes}", "--decoder-name", "{decoder}",
+      "--decode-cache", "1"], "{two_passes}"),
+)
+ANIMAL_DECODER_ITERS = 40
+
+
+def phase_trainer_animals(device, work_dir):
+    """The two animal lines of ``script`` through the port's
+    ``train_animal.main`` in this process (``train_animal_other`` runs the
+    same main with dog and sheep), on fake trees in the datasets' layouts
+    (``write_fake_synthetic_animals``, ``write_fake_tigdog``,
+    ``write_fake_animal_pose``) with random style weights, pose_resnet101
+    b=32 at 256²/64², -j as in trainer_cli, one epoch (ANIMAL_RUNS): the
+    train_animal line adapting, pretraining, bundled (--steps-per-dispatch
+    4), and with the decoder that the AdaIN animal CLI trains here for
+    ANIMAL_DECODER_ITERS iterations and --decode-cache 1, over two passes
+    of the synthetic training set (6 iterations at b=32; the TigDog set's
+    third); the train_animal_other line adapting. Each run's launches (occlusion_warp once an adapt iteration,
+    none in pretraining or the AdaIN CLI), finite epoch lines with their two
+    category parts, the AdaIN CLI's two PNGs and checkpoint, and no worker
+    left are required; each run prints its wall time, dataset construction
+    time (build_data), first-batch wait, the median Time and Data of the
+    iterations after the first, each validation's seconds and items, the
+    parent's RSS, and for --decode-cache the frame caches' counts. Returns
+    the launches of each run."""
+    import multiprocessing
+
+    import torch
+
+    from uda_poseestimation_torch import train_animal
+    from uda_poseestimation_torch.adain import train_animal as adain_cli
+
+    t0 = time.perf_counter()
+    root = os.path.join(work_dir, "animals")
+    write_fake_synthetic_animals(root)
+    write_fake_tigdog(root)
+    write_fake_animal_pose(root)
+    write_style_weights(work_dir)
+    fixture_s = time.perf_counter() - t0
+    image_path = os.path.join(root, "animal_data")
+    workers = min(8, os.cpu_count() or 1)
+    none = dict.fromkeys(_counters(), 0)
+    build_data, run_validate = train_animal.build_data, train_animal.run_validate
+    record = {}
+
+    def timed_build(args, pin, eval_categories):
+        t = time.perf_counter()
+        out = build_data(args, pin, eval_categories)
+        record["construct_s"] = time.perf_counter() - t
+        record["rss_kb_after_construction"] = _rss_kb()
+        record["datasets"] = (out.train_source_dataset, out.train_target_loader.dataset)
+        return out
+
+    def timed_validate(eval_step, model, loader, args, visualize=None):
+        t = time.perf_counter()
+        out = run_validate(eval_step, model, loader, args, visualize=visualize)
+        record.setdefault("validation", []).append(
+            {"s": time.perf_counter() - t, "items": len(loader.dataset)})
+        return out
+
+    cfg = ANIMAL_TREES["synthetic"]
+    fill = {"{two_passes}": str(2 * (len(cfg["animals"]) * cfg["train"] // MAIN_B))}
+    launches = {}
+    cwd, fuse_env = os.getcwd(), os.environ.pop("UDA_BN_FUSE", None)
+    cache_env = os.environ.get("UDA_CACHED_DATA_DIR")
+    os.environ["UDA_CACHED_DATA_DIR"] = os.path.join(root, "cached_data")
+    train_animal.build_data, train_animal.run_validate = timed_build, timed_validate
+    os.chdir(work_dir)
+    try:
+        for name, program, extra, warps in ANIMAL_RUNS:
+            record.clear()
+            printed = io.StringIO()
+            if program is None:  # the AdaIN animal CLI
+                args = adain_cli.build_parser().parse_args(
+                    ["--source", "synthetic_animal_sp_all", "--target_ssl",
+                     "real_animal_all_mt", "--image-path", image_path, "--train_on_all_cat",
+                     "--vgg", "saved_models/vgg_normalised.pth", "--image-size",
+                     str(MAIN_IMAGE), "--inp-res", str(MAIN_IMAGE), "--out-res",
+                     str(MAIN_HEATMAP), "--max_iter", str(ANIMAL_DECODER_ITERS),
+                     "--save_model_interval", "20", "--log_img_interval", "20",
+                     "--exp_name", "decoder_animal", "--device", str(device)]
+                    + _cli_aug_flags_of(animal_script_line("train_animal.py")))
+                with contextlib.redirect_stdout(printed), tf32(True, False):
+                    _reset_counts()
+                    r0 = time.perf_counter()
+                    adain_cli.main(args)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - r0
+                    launches[name] = _read_counts()
+                out = os.path.join("logs", "decoder_animal")
+                with open(os.path.join(out, "log_decoder_animal.txt")) as f:
+                    lines = _finite_lines(f.read(), ("iter: ",))
+                pngs = sorted(os.listdir(os.path.join(out, "save_imgs",
+                                                      "save_img_decoder_animal")))
+                fill["{decoder}"] = os.path.join(out, "saved_model",
+                                                 "decoder_decoder_animal.pth.tar")
+                if (len(lines) != ANIMAL_DECODER_ITERS or pngs != ["0.png", "20.png"]
+                        or not os.path.isfile(fill["{decoder}"])
+                        or "WARNING" in printed.getvalue()):
+                    raise AssertionError(f"AdaIN animal CLI: {len(lines)} lines, PNGs {pngs}, "
+                                         f"{printed.getvalue()[-500:]}")
+                run = {"wall_s": wall, "wall_s_per_iter": wall / ANIMAL_DECODER_ITERS,
+                       "log": [lines[0], lines[-1]], "pngs": pngs}
+            else:
+                argv = animal_script_line(program) + [
+                    "--image-path", image_path, "-a", TRAINER_ARCH, "-b", str(MAIN_B),
+                    "--image-size", str(MAIN_IMAGE), "--heatmap-size", str(MAIN_HEATMAP),
+                    "--inp-res", str(MAIN_IMAGE), "--out-res", str(MAIN_HEATMAP),
+                    "--epochs", "1", "-p", "1", "-j", str(workers),
+                    "--decoder-name", "saved_models/decoder_rand.pth", "--device", str(device),
+                    "--log", f"logs/animal_{name}"] + [fill.get(tok, tok) for tok in extra]
+                args = train_animal.build_parser().parse_args(argv)
+                categories = ("dog", "sheep") if program == "train_animal_other.py" \
+                    else ("horse", "tiger")
+                with contextlib.redirect_stdout(printed):
+                    _reset_counts()
+                    r0 = time.perf_counter()
+                    train_animal.main(args, eval_categories=categories)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - r0
+                    launches[name] = _read_counts()
+                log_dir = f"logs/animal_{name}_{TRAINER_ARCH}"
+                (log,) = [f for f in os.listdir(log_dir) if f.startswith("train-")]
+                with open(os.path.join(log_dir, log)) as f:
+                    lines = _finite_lines(f.read(), ("Epoch: 0 ",))
+                if not all(f" {c.capitalize()}: " in lines[0] for c in categories):
+                    raise AssertionError(f"run {name}: epoch line {lines[0]}")
+                _finite_lines(printed.getvalue(), ("Epoch: [0][",))
+                times = printed_times(printed.getvalue())
+                source_val, target_val, *category_vals = record["validation"]
+                run = {"program": program, "source": args.source, "target": args.target,
+                       "target_ssl": args.target_ssl, "wall_s": wall,
+                       "construct_s": record["construct_s"],
+                       "first_batch_s": times["first_batch_s"],
+                       "time_s_median_after_first": statistics.median(times["time_s_each"][1:]),
+                       "data_s_median_after_first": statistics.median(times["data_s_each"][1:]),
+                       "validation_source": source_val, "validation_target": target_val,
+                       "validation_categories": dict(zip(categories, category_vals)),
+                       "rss_kb_after_construction": record["rss_kb_after_construction"],
+                       "log": lines, "time_s_each": times["time_s_each"],
+                       "data_s_each": times["data_s_each"]}
+                if args.decode_cache:
+                    caches = {side: ds._frames for side, ds in
+                              zip(("source", "target"), record["datasets"])}
+                    run["decode_cache"] = {side: {"hits": c.hits, "misses": c.misses,
+                                                  "items_cached": c.items_cached}
+                                           for side, c in caches.items()}
+                    run["decode_cache_bytes_used"] = caches["source"].bytes_used
+                    if not (all(c.hits > 0 for c in caches.values())
+                            and 0 < caches["source"].bytes_used <= args.decode_cache * 1e9):
+                        raise AssertionError(f"run {name}: cache {run['decode_cache']}")
+            record.clear()
+            gc.collect()
+            if multiprocessing.active_children():
+                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            want = dict(none, occlusion_warp=int(fill.get(warps, warps)))
+            if launches[name] != want:
+                raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
+            emit({"phase": "trainer_animals", "run": name, **run, "rss_kb_end": _rss_kb(),
+                  "launches": launches[name]})
+    finally:
+        os.chdir(cwd)
+        train_animal.build_data, train_animal.run_validate = build_data, run_validate
+        if fuse_env is not None:
+            os.environ["UDA_BN_FUSE"] = fuse_env
+        if cache_env is None:
+            os.environ.pop("UDA_CACHED_DATA_DIR", None)
+        else:
+            os.environ["UDA_CACHED_DATA_DIR"] = cache_env
+    emit({"phase": "trainer_animals", "workers": workers, "fake_trees": ANIMAL_TREES,
+          "fixture_s": fixture_s, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3054,6 +3423,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         decoder_launches = timed("decoder", phase_decoder, device, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        animal_launches = timed("trainer_animals", phase_trainer_animals, device, work_dir)
     emit({"phase_seconds": seconds})
     # each row's launches are those of the path it lies on (warp_gather: none),
     # in all and in the last measured adapt step; then every path's own count
@@ -3063,7 +3435,8 @@ def main(argv=None) -> int:
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()},
-               **decoder_launches}
+               **decoder_launches,
+               **{f"trainer_animals_{k}": v for k, v in animal_launches.items()}}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):
         rows[name]["launches"] = run["launches"][name]

@@ -1,10 +1,11 @@
 """Keypoint dataset base classes (reference lib/datasets/keypoint_dataset.py).
 
-The port's copy of ``KeypointDataset``, ``Hand21KeypointDataset`` and
-``Body16KeypointDataset`` from ``uda_poseestimation_tpu/data/
+The port's copy of ``KeypointDataset``, ``Hand21KeypointDataset``,
+``Body16KeypointDataset``, ``Animal18KeypointDataset`` (TigDog) and
+``Animal14KeypointDataset`` (AnimalPose) from ``uda_poseestimation_tpu/data/
 keypoint_dataset.py``, as map-style ``torch.utils.data.Dataset`` classes:
 the skeleton tables, the keypoint groups and ``group_accuracy`` (per-group
-PCK, 'all' included) are the reference's (:42-153). ``visualize`` draws with
+PCK, 'all' included) are the reference's (:42-236). ``visualize`` draws with
 OpenCV, imported when it is called, so the package imports without it.
 """
 
@@ -47,7 +48,7 @@ class KeypointDataset(Dataset):
         if keypoints is not None:
             keypoints = np.asarray(keypoints)
             for (_, (line, color)) in self.colored_skeleton.items():
-                color = _COLORS.get(color, color)
+                color = _COLORS[color] if isinstance(color, str) else color
                 for i in range(len(line) - 1):
                     start, end = keypoints[line[i]], keypoints[line[i + 1]]
                     cv2.line(image, (int(start[0]), int(start[1])),
@@ -126,4 +127,76 @@ class Hand21KeypointDataset(KeypointDataset):
             "fingertip": self.fingertip, "all": self.all,
         }
         super().__init__(root, 21, samples, keypoints_group=keypoints_group,
+                         colored_skeleton=colored_skeleton, **kwargs)
+
+
+class Animal18KeypointDataset(KeypointDataset):
+    """18 animal keypoints, the TigDog family (reference :156-201)."""
+
+    eye = (0, 1)
+    chin = (2,)
+    hoof = (3, 4, 5, 6)
+    hip = (7,)
+    knee = (8, 9, 10, 11)
+    shoulder = (12, 13)
+    elbow = (14, 15, 16, 17)
+    all = tuple(range(18))
+
+    right_front_leg = (3, 8, 14)
+    left_front_leg = (4, 9, 15)
+    right_back_leg = (5, 10, 16)
+    left_back_leg = (6, 11, 17)
+    right_torso = (13, 7)
+    right_face = (1, 2)
+    left_torso = (12, 7)
+    left_face = (0, 2)
+
+    def __init__(self, root, samples, **kwargs):
+        colored_skeleton = {
+            "right_front_leg": (self.right_front_leg, [0, 0, 255]),
+            "left_front_leg": (self.left_front_leg, [0, 127, 255]),
+            "right_back_leg": (self.right_back_leg, [0, 255, 255]),
+            "left_back_leg": (self.left_back_leg, [0, 255, 0]),
+            "right_torso": (self.right_torso, [255, 0, 0]),
+            "right_face": (self.right_face, [255, 0, 0]),
+            "left_torso": (self.left_torso, [255, 0, 255]),
+            "left_face": (self.left_face, [255, 0, 255]),
+        }
+        keypoints_group = {
+            "eye": self.eye, "chin": self.chin, "hoof": self.hoof,
+            "hip": self.hip, "knee": self.knee, "shoulder": self.shoulder,
+            "elbow": self.elbow, "all": self.all,
+        }
+        super().__init__(root, 18, samples, keypoints_group=keypoints_group,
+                         colored_skeleton=colored_skeleton, **kwargs)
+
+
+class Animal14KeypointDataset(KeypointDataset):
+    """14 animal keypoints, the AnimalPose family (reference :203-236)."""
+
+    eye = (0, 1)
+    hoof = (2, 3, 4, 5)
+    knee = (6, 7, 8, 9)
+    elbow = (10, 11, 12, 13)
+    all = tuple(range(14))
+
+    right_front_leg = (2, 6, 10)
+    left_front_leg = (3, 7, 11)
+    right_back_leg = (4, 8, 12)
+    left_back_leg = (5, 9, 13)
+    eyes = (0, 1)
+
+    def __init__(self, root, samples, **kwargs):
+        colored_skeleton = {
+            "eyes": (self.eyes, [255, 0, 255]),
+            "right_front_leg": (self.right_front_leg, [0, 0, 255]),
+            "left_front_leg": (self.left_front_leg, [0, 127, 255]),
+            "right_back_leg": (self.right_back_leg, [0, 255, 255]),
+            "left_back_leg": (self.left_back_leg, [0, 255, 0]),
+        }
+        keypoints_group = {
+            "eye": self.eye, "hoof": self.hoof, "knee": self.knee,
+            "elbow": self.elbow, "all": self.all,
+        }
+        super().__init__(root, 14, samples, keypoints_group=keypoints_group,
                          colored_skeleton=colored_skeleton, **kwargs)

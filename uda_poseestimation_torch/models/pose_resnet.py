@@ -51,6 +51,11 @@ class PoseResNet(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
+        if self.dtype == torch.float32:
+            # without autocast the input takes the parameters' dtype (bf16
+            # styled images into a float32 model), as the JAX model promotes
+            # its input to its dtype
+            x = x.to(self.head.weight.dtype)
         with torch.autocast(x.device.type, dtype=self.dtype,
                             enabled=self.dtype != torch.float32):
             y = self.head(self.upsampling(self.backbone(x)))

@@ -30,6 +30,10 @@ human dataset of the JAX registry (``data/__init__.py``), so the four
 Model weights start from ``create_state(..., seed=--seed)``: the JAX
 package's initializers and distributions, drawn from torch's generator, so
 the values differ from a JAX run with the same seed.
+
+``run_training`` (models, style net, steps, bundlers, restores and the
+epoch loop) is shared with the animal trainers (``train_animal.py``), which
+bring their own datasets, normalization and validation.
 """
 
 from __future__ import annotations
@@ -213,47 +217,34 @@ def main(args: argparse.Namespace):
         logger.close()
 
 
-def _train(args, device, logger):
+def seed_host_streams(args, logger):
+    """Log the flags; with ``--seed``, seed ``random``, numpy and torch (the
+    loaders' shuffles and worker seeds)."""
     logger.write(" ".join(f"{k}={v}" for k, v in vars(args).items()))
     if args.seed is not None:
         random.seed(args.seed)
         np.random.seed(args.seed)
-        torch.manual_seed(args.seed)  # the loaders' shuffles and worker seeds
+        torch.manual_seed(args.seed)
         warnings.warn("You have chosen to seed training.")
 
-    (train_source_dataset, train_source_loader, val_source_loader, train_target_loader,
-     val_target_loader) = build_data(args, pin=device.type == "cuda")
 
-    logger.write("Source train: {}".format(len(train_source_loader)))
-    logger.write("Target train: {}".format(len(train_target_loader)))
-    logger.write("Source test: {}".format(len(val_source_loader)))
-    logger.write("Target test: {}".format(len(val_target_loader)))
+class Validation(NamedTuple):
+    """One validation's group PCK: the source's, the target's and, for the
+    animal trainers, each category's (name, groups)."""
+    source: dict
+    target: dict
+    categories: tuple = ()
 
-    train_source_iter = ForeverDataIterator(train_source_loader)
-    train_target_iter = ForeverDataIterator(train_target_loader)
 
-    # bf16 models, bf16 styled images and the bf16-rounding occlusion
-    # gather, as the JAX trainer configures its steps
-    cfg = StepConfig(image_size=args.image_size, heatmap_size=args.heatmap_size,
-                     sigma=args.sigma, k=args.k, lambda_c=args.lambda_c,
-                     teacher_alpha=args.teacher_alpha, mask_ratio=args.mask_ratio,
-                     occlude_rate=args.occlude_rate, occlude_thresh=args.occlude_thresh,
-                     occlude_size=args.occlude_size,
-                     recover_min=RECOVER_MIN, recover_max=RECOVER_MAX,
-                     use_sgd=args.SGD, finetune=args.finetune,
-                     gather_exact=False, style_io_dtype="bfloat16")
-    model = models.__dict__[args.arch](num_keypoints=train_source_dataset.num_keypoints,
-                                       dtype=torch.bfloat16)
-    state = create_state(model, cfg, seed=args.seed if args.seed is not None else 0,
-                         device=device)
-
-    style_model = None
-    if args.decoder_name is not None:
-        style_model = load_style_net_files(StyleNet(), VGG_PATH, args.decoder_name)
-        style_model.to(device=device, dtype=torch.bfloat16)  # frozen: bf16 storage
+def _train(args, device, logger):
+    seed_host_streams(args, logger)
+    data = build_data(args, pin=device.type == "cuda")
+    logger.write("Source train: {}".format(len(data.train_source_loader)))
+    logger.write("Target train: {}".format(len(data.train_target_loader)))
+    logger.write("Source test: {}".format(len(data.val_source_loader)))
+    logger.write("Target test: {}".format(len(data.val_target_loader)))
 
     device_aug = None
-    views = {"adapt": None, "pretrain": None}
     if args.device_aug:
         if args.color_stu or args.color_tea:
             warnings.warn(
@@ -269,6 +260,71 @@ def _train(args, device, logger):
                                        mean=IMAGENET_MEAN, std=IMAGENET_STD,
                                        seed=args.seed if args.seed is not None else 0,
                                        device=device)
+
+    def validate(eval_step, model, visualize):
+        return Validation(run_validate(eval_step, model, data.val_source_loader, args),
+                          run_validate(eval_step, model, data.val_target_loader, args,
+                                       visualize=visualize))
+
+    def report(epoch, acc, best_acc):
+        if epoch is None:  # --phase test
+            logger.write("Source: {:4.3f} Target: {:4.3f}".format(
+                acc.source["all"], acc.target["all"]))
+        else:
+            logger.write("Epoch: {} Source: {:4.3f} Target: {:4.3f} Target(best): {:4.3f}"
+                         .format(epoch, acc.source["all"], acc.target["all"], best_acc))
+        for name, value in acc.target.items():
+            logger.write("{}: {:4.3f}".format(name, value))
+
+    run_training(args, device, logger, data.train_source_dataset,
+                 ForeverDataIterator(data.train_source_loader),
+                 ForeverDataIterator(data.train_target_loader),
+                 recover=(RECOVER_MIN, RECOVER_MAX),
+                 denormalize=lambda image: image * np.asarray(IMAGENET_STD)
+                 + np.asarray(IMAGENET_MEAN),
+                 validate=validate, report=report, device_aug=device_aug)
+
+
+def run_training(args, device, logger, train_source_dataset, train_source_iter,
+                 train_target_iter, recover, denormalize, validate, report,
+                 device_aug=None):
+    """What every trainer of the port shares, after its data: the steps'
+    ``StepConfig`` (bf16 models, bf16 styled images and the bf16-rounding
+    occlusion gather, as the JAX trainers configure them, with the styled
+    image clamped to ``recover`` = (min, max)), the student and teacher
+    (``--arch`` with the source's keypoint count, from ``--seed``), the
+    style net of ``--decoder-name``, the steps and the bundlers of
+    ``--steps-per-dispatch``, ``--resume`` / ``--pretrain``, and the epoch
+    loop: pretraining for ``--pretrain-epoch`` epochs, then adaptation from
+    the best pretrained student (``best_pt``), a validation after each
+    epoch, and ``best_pt`` / ``best`` written when the target's PCK beats
+    the best so far. ``--phase test`` validates the teacher once.
+
+    ``denormalize(image)`` maps a normalized HWC image back to [0, 1] for
+    ``--debug``'s images; ``validate(eval_step, model, visualize)`` returns
+    a ``Validation``; ``report(epoch, validation, best)`` writes its lines
+    (``epoch`` None for ``--phase test``); ``device_aug`` is a
+    ``DeviceAugPipeline`` (``--device-aug``)."""
+    cfg = StepConfig(image_size=args.image_size, heatmap_size=args.heatmap_size,
+                     sigma=args.sigma, k=args.k, lambda_c=args.lambda_c,
+                     teacher_alpha=args.teacher_alpha, mask_ratio=args.mask_ratio,
+                     occlude_rate=args.occlude_rate, occlude_thresh=args.occlude_thresh,
+                     occlude_size=args.occlude_size,
+                     recover_min=recover[0], recover_max=recover[1],
+                     use_sgd=args.SGD, finetune=args.finetune,
+                     gather_exact=False, style_io_dtype="bfloat16")
+    model = models.__dict__[args.arch](num_keypoints=train_source_dataset.num_keypoints,
+                                       dtype=torch.bfloat16)
+    state = create_state(model, cfg, seed=args.seed if args.seed is not None else 0,
+                         device=device)
+
+    style_model = None
+    if args.decoder_name is not None:
+        style_model = load_style_net_files(StyleNet(), VGG_PATH, args.decoder_name)
+        style_model.to(device=device, dtype=torch.bfloat16)  # frozen: bf16 storage
+
+    views = {"adapt": None, "pretrain": None}
+    if device_aug is not None:
         views = {"adapt": device_aug.view_builder,
                  "pretrain": device_aug.pretrain_view_builder(style_model is not None)}
 
@@ -302,21 +358,14 @@ def _train(args, device, logger):
 
     def visualize(image, keypoint2d, name):
         image = np.asarray(image)
-        if image.dtype == np.uint8:  # --device-aug raw canvases
+        if image.dtype == np.uint8:  # --device-aug raw canvases (JAX denormalizes them too)
             image = image.astype(np.float32) / 255.0
-        denorm = image * np.asarray(IMAGENET_STD) + np.asarray(IMAGENET_MEAN)
-        img_u8 = np.clip(denorm * 255.0, 0, 255).astype(np.uint8)
+        img_u8 = np.clip(denormalize(image) * 255.0, 0, 255).astype(np.uint8)
         train_source_dataset.visualize(img_u8, keypoint2d,
                                        logger.get_image_path("{}.jpg".format(name)))
 
     if args.phase == "test":
-        source_val_acc = run_validate(eval_step, state.teacher, val_source_loader, args)
-        target_val_acc = run_validate(eval_step, state.teacher, val_target_loader, args,
-                                      visualize=visualize)
-        logger.write("Source: {:4.3f} Target: {:4.3f}".format(
-            source_val_acc["all"], target_val_acc["all"]))
-        for name, acc in target_val_acc.items():
-            logger.write("{}: {:4.3f}".format(name, acc))
+        report(None, validate(eval_step, state.teacher, visualize), None)
         return
 
     best_acc = 0
@@ -341,11 +390,9 @@ def _train(args, device, logger):
                 device_aug=device_aug)
 
         eval_model = state.student if epoch < args.pretrain_epoch else state.teacher
-        source_val_acc = run_validate(eval_step, eval_model, val_source_loader, args)
-        target_val_acc = run_validate(eval_step, eval_model, val_target_loader, args,
-                                      visualize=visualize if args.debug else None)
+        acc = validate(eval_step, eval_model, visualize if args.debug else None)
 
-        if target_val_acc["all"] > best_acc:
+        if acc.target["all"] > best_acc:
             save_checkpoint(
                 logger.get_checkpoint_path(
                     "best_pt" if epoch < args.pretrain_epoch else "best"),
@@ -355,11 +402,8 @@ def _train(args, device, logger):
                                   "gamma": args.lr_factor},
                  "epoch": epoch,
                  "args": args})
-            best_acc = target_val_acc["all"]
-        logger.write("Epoch: {} Source: {:4.3f} Target: {:4.3f} Target(best): {:4.3f}".format(
-            epoch, source_val_acc["all"], target_val_acc["all"], best_acc))
-        for name, acc in target_val_acc.items():
-            logger.write("{}: {:4.3f}".format(name, acc))
+            best_acc = acc.target["all"]
+        report(epoch, acc, best_acc)
 
 
 ARCHITECTURES = ("pose_resnet50", "pose_resnet101")
