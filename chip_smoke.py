@@ -133,12 +133,25 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             (4 iterations), and with a decoder that the AdaIN animal CLI
             (uda_poseestimation_torch.adain.train_animal) trains for 40
             iterations first and --decode-cache 1, over 6 iterations;
-            the train_animal_other line adapting. occlusion_warp once an
-            adapt iteration, never in pretraining or the AdaIN CLI; finite
-            epoch lines with both category parts, the AdaIN run's 2 PNGs and
-            checkpoint, no worker left; one line per run as in
-            trainer_pairs, each category's validation included, and the
-            frame caches' hits and bytes.
+            the train_animal_other line adapting; and with --device-aug:
+            adapting (3 iterations), pretraining bundled (4), and
+            adapting bundled with --decode-cache 1 over two passes of the
+            synthetic set rounded up to whole bundles (8); and a steady pair,
+            24 adapt iterations with host views and with --device-aug on
+            trees of 20 batches a pass (ANIMAL_LONG_TREES). occlusion_warp
+            once an adapt iteration, eager or replayed, never in
+            pretraining or the AdaIN CLI; finite epoch lines with both
+            category parts, the AdaIN run's 2 PNGs and checkpoint, no worker
+            left; one line per run as in trainer_pairs, each category's
+            validation included, and the frame caches' (and the raw
+            source's CachedDataset's) hits and bytes; each --device-aug
+            run's Time, Data and first-batch wait beside its host-path
+            twin's. Before the runs, the animal view builder
+            (animal_views_on_card): on the card against the CPU on a small
+            batch (integer decisions equal), alone at b=32 (CUDA-event ms,
+            host ms, kernels, bytes copied an iteration on both paths), and
+            the adapt and pretrain bundlers' replays with the views built
+            inside held against eager steps.
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -3001,13 +3014,17 @@ def phase_decoder(device, work_dir):
 # frames; AnimalPose at 500x375. Each training set holds two or more batches
 # of 32, each evaluation set at most 32 items a category (--test-batch 1).
 ANIMAL_TREES = {
-    "synthetic": {"animals": ("horse", "tiger"), "train": 56, "valid": 8, "frame": (480, 640),
+    "synthetic": {"animals": ("horse", "tiger"), "train": 48, "valid": 8, "frame": (480, 640),
                   "distinct_frames": 16},
     "tigdog": {"animals": ("horse", "tiger"), "shots": 7, "frames_per_shot": 8, "train": 40,
                "valid": 16, "frame": (360, 640), "distinct_frames": 16},
     "animal_pose": {"animals": ("dog", "sheep"), "train": 40, "test": 16, "frame": (375, 500),
                     "distinct_frames": 16},
 }
+# the steady runs' trees: the same frames and layouts with 20 training
+# batches of 32 a pass, so that 24 iterations cross one pass boundary
+ANIMAL_LONG_TREES = {"synthetic": dict(ANIMAL_TREES["synthetic"], train=320),
+                     "tigdog": dict(ANIMAL_TREES["tigdog"], shots=45, train=320)}
 ANIMAL_MEAN_STD = ([0.3999, 0.3909, 0.3871], [0.2589, 0.2431, 0.2291])
 # blobs a fake frame: the annotations are drawn apart from them, and a blob
 # costs an exp over the whole frame when the trees are written
@@ -3029,7 +3046,7 @@ def _box_keypoints(rng, n, k, h, w, margin=0.15):
                      rng.uniform(margin * h, (1 - margin) * h, (n, k))], axis=-1)
 
 
-def write_fake_synthetic_animals(root):
+def write_fake_synthetic_animals(root, cfg=None):
     """The synthetic-animal layout under ``root/animal_data`` and
     ``root/cached_data``: horse and tiger renders (PNG, names linked to
     ``distinct_frames`` renders each), ``clean_data/keypoints_18.json`` (18
@@ -3039,7 +3056,7 @@ def write_fake_synthetic_animals(root):
     renders as hound and sheep with their first 14 keypoints."""
     import numpy as np
 
-    cfg = ANIMAL_TREES["synthetic"]
+    cfg = cfg or ANIMAL_TREES["synthetic"]
     h, w = cfg["frame"]
     n = cfg["train"] + cfg["valid"]
     rng = np.random.RandomState(7)
@@ -3067,7 +3084,7 @@ def write_fake_synthetic_animals(root):
                             "mean.pth.tar"), *ANIMAL_MEAN_STD)
 
 
-def write_fake_tigdog(root):
+def write_fake_tigdog(root, cfg=None):
     """TigDog's layout (behaviorDiscovery2.0): per animal ``ranges.mat``
     (shot, first frame, last frame), a ``landmarks/<shot>.mat`` per shot
     (18 keypoints and their visibility per frame), the frames, and the
@@ -3075,7 +3092,7 @@ def write_fake_tigdog(root):
     import numpy as np
     from scipy.io import savemat
 
-    cfg = ANIMAL_TREES["tigdog"]
+    cfg = cfg or ANIMAL_TREES["tigdog"]
     h, w = cfg["frame"]
     rng = np.random.RandomState(8)
     base = os.path.join(root, "animal_data", "behaviorDiscovery2.0")
@@ -3148,6 +3165,201 @@ def write_fake_animal_pose(root):
                [0.4042, 0.3977, 0.3974], [0.25, 0.24, 0.23])
 
 
+def raw_animal_batch(rng, b, num_kpts, with_style=False):
+    """A raw animal --device-aug batch as ``AnimalDeviceAugPipeline.
+    raw_adapt_batch`` gives it from the loaders: the synthetic source's
+    uint8 640x480 frames with their keypoints (visibility 1), box centers
+    and scales, and the target's uint8 crops at MAIN_IMAGE with keypoints in
+    a 640x360 frame, their visibility, centers and scales; page-locked.
+    ``with_style`` adds the pretrain batch's style image (the identity
+    teacher view, mean-normalized)."""
+    import numpy as np
+    import torch
+
+    h, w = ANIMAL_TREES["synthetic"]["frame"]
+    pts = np.concatenate([_box_keypoints(rng, b, num_kpts, h, w),
+                          np.ones((b, num_kpts, 1))], -1).astype(np.float32)
+    lo, hi = pts[..., :2].min(1), pts[..., :2].max(1)
+    th, tw = ANIMAL_TREES["tigdog"]["frame"]
+    kp_t = _box_keypoints(rng, b, num_kpts, th, tw).astype(np.float32)
+    out = {"canvas_s": rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8), "pts_s": pts,
+           "center_s": ((lo + hi) / 2).astype(np.float32),
+           "scale_s": ((hi - lo).max(1) / 200.0 * 1.25).astype(np.float32),
+           "canvas_t": rng.randint(0, 256, (b, MAIN_IMAGE, MAIN_IMAGE, 3)).astype(np.uint8),
+           "kp_t": kp_t, "vis_t": (rng.rand(b, num_kpts) > 0.1).astype(np.float32),
+           "center_t": ((kp_t.min(1) + kp_t.max(1)) / 2).astype(np.float32),
+           "scale_t": ((kp_t.max(1) - kp_t.min(1)).max(1) / 200.0 * 1.25).astype(np.float32)}
+    if with_style:
+        out["image_t_style"] = (out["canvas_t"].astype(np.float32) / 255.0
+                                - np.asarray(ANIMAL_MEAN_STD[0], np.float32))
+    return {k: torch.from_numpy(v).pin_memory() for k, v in out.items()}
+
+
+def animal_pipelines(device):
+    """The animal --device-aug pipeline of the train_animal line's flags
+    (``train_animal.device_aug_pipeline``, the synthetic source on the
+    device) at MAIN_IMAGE/MAIN_HEATMAP, on ``device`` and on the CPU."""
+    from types import SimpleNamespace
+
+    from uda_poseestimation_torch import train_animal
+
+    args = train_animal.build_parser().parse_args(
+        animal_script_line("train_animal.py") + [
+            "--image-size", str(MAIN_IMAGE), "--heatmap-size", str(MAIN_HEATMAP),
+            "--inp-res", str(MAIN_IMAGE), "--out-res", str(MAIN_HEATMAP), "--device-aug"])
+    source = SimpleNamespace(raw_mode=True, FLIP_DATASET="real_animal", num_keypoints=18,
+                             mean=ANIMAL_MEAN_STD[0])
+    return tuple(train_animal.device_aug_pipeline(args, source, d) for d in (device, "cpu"))
+
+
+def _kernel_count(fn):
+    """(kernels, device ms) of one call of ``fn`` in a torch.profiler trace,
+    or (None, None) when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation]
+    if not rows:
+        return None, None
+    return sum(ev.count for ev in rows), sum(ev.device_time_total for ev in rows) / 1e3
+
+
+def _animal_views_card_vs_cpu(device, pipe, cpu_pipe, b=4):
+    """The animal view builder on the card against the CPU on one small raw
+    batch, from the same draws (made on the CPU, copied): the source's
+    keypoint2d, target weights and the warp's nearest indices (an index
+    image warped on both, the affine coefficients of the student draws)
+    equal; the source's targets within 1e-6 of their peak; the source image
+    within 1e-5 but for one bytescale level (1/255) at 0.1% of its values
+    at most; the student and teacher views within 1e-6 at all but 0.1%; the
+    aug_params within 1e-6."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.ops.affine import inverse_affine_coeffs, warp_affine
+
+    raw = {k: v[:b] for k, v in raw_animal_batch(np.random.RandomState(5), b, 18).items()}
+    g = torch.Generator().manual_seed(4)
+    draws = {"target": cpu_pipe.draw_target(b, g), "source": cpu_pipe.draw_source(b, g)}
+
+    def on(tree, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    raw_dev, draws_dev = on(raw, device), on(draws, device)
+    want = cpu_pipe.view_builder(raw, draws=draws)
+    got = pipe.view_builder(raw_dev, draws=draws_dev)
+    src_args = [raw[k] for k in ("canvas_s", "pts_s", "center_s", "scale_s")]
+    want_src = cpu_pipe.prep_source(*src_args, draws=draws["source"])
+    got_src = pipe.prep_source(*(t.to(device) for t in src_args), draws=draws_dev["source"])
+    d = draws["target"]["student"]
+    coeffs = inverse_affine_coeffs(*(d[n][0] for n in ("angle", "trans_x", "trans_y",
+                                                       "shear_x")),
+                                   torch.zeros(b), d["scale"][0])
+    index = torch.arange(MAIN_IMAGE ** 2, dtype=torch.float32).view(1, 1, MAIN_IMAGE, MAIN_IMAGE)
+    index = index.expand(b, 1, MAIN_IMAGE, MAIN_IMAGE).contiguous()
+    integer = {"keypoint2d_s": bool(torch.equal(got_src[3].cpu(), want_src[3])),
+               "weight_s": bool(torch.equal(got["weight_s"].cpu(), want["weight_s"])),
+               "warp_indices": bool(torch.equal(warp_affine(index, coeffs),
+                                                warp_affine(index.to(device),
+                                                            coeffs.to(device)).cpu()))}
+    peak = float(want["target_s"].abs().max())
+    floats = {"target_s": _mostly_close(got["target_s"], want["target_s"], 1e-6 * peak,
+                                        share=0.0)}
+    for name in ("image_t_stu", "images_t_tea"):
+        floats[name] = _mostly_close(got[name], want[name], 1e-6)
+    for name in ("aug_param_stu", "aug_params_tea"):
+        floats[name] = _mostly_close(got[name], want[name], 1e-6, share=0.0)
+    err = (got["image_s"].cpu() - want["image_s"]).abs()
+    floats["image_s"] = (float((err > 1e-5).double().mean()),
+                         float((err > 1e-5).double().mean()) <= 1e-3
+                         and float(err.max()) <= 1.0 / 255 + 1e-5)
+    result = {"batch": b, "integer_equal": integer,
+              "off_share": {k: v[0] for k, v in floats.items()},
+              "source_gates_fired": int(draws["source"]["gates"].sum()),
+              "source_flips": int(draws["source"]["flip"].sum())}
+    if not (all(integer.values()) and all(v[1] for v in floats.values())):
+        raise AssertionError(f"animal views on the card against the CPU: {result}")
+    return result
+
+
+def animal_views_on_card(device):
+    """The animal view builder on the card: against the CPU
+    (``_animal_views_card_vs_cpu``); alone at b=MAIN_B with 18 keypoints
+    (CUDA-event ms, then 8 calls' host enqueue and synchronized wall ms,
+    its kernels and their device ms in a torch.profiler trace, and the
+    bytes an iteration copies to the card against the host path's adapt
+    batch); then the adapt and pretrain
+    bundlers' graph replays with the views built inside held against eager
+    steps (``_held_against_eager``, ``_pretrain_held_against_eager``) on a
+    pose_resnet101 with 18 keypoints. Returns the record and the launches
+    of the replay checks."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.parallel import StepConfig, create_state
+
+    t0 = time.perf_counter()
+    pipe, cpu_pipe = animal_pipelines(device)
+    record = {"card_vs_cpu": _animal_views_card_vs_cpu(device, pipe, cpu_pipe)}
+    raw = raw_animal_batch(np.random.RandomState(0), MAIN_B, 18, with_style=True)
+    raw_dev = {k: v.to(device) for k, v in raw.items()}
+    build = pipe.pretrain_view_builder(True)
+    views = {"adapt": lambda: pipe.view_builder(raw_dev),
+             "pretrain": lambda: build(raw_dev, True)}
+    for name, fn in views.items():
+        event_ms = cuda_ms(fn, 10)  # after its own warm-up call
+        enqueue, synchronized = [], []
+        for _ in range(8):
+            h0 = time.perf_counter()
+            fn()
+            h1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue.append((h1 - h0) * 1e3)
+            synchronized.append((time.perf_counter() - h0) * 1e3)
+        kernels, device_ms = _kernel_count(fn)
+        record[f"{name}_builder"] = {"cuda_event_ms": event_ms,
+                                     "host_enqueue_ms_each": enqueue,
+                                     "synchronized_ms_each": synchronized,
+                                     "kernels": kernels, "profiled_device_ms": device_ms}
+    # what an iteration copies to the card: the raw leaves, against the host
+    # path's adapt batch (make_adapt_batch) at the same sizes
+    raw_adapt = {k: v for k, v in raw.items() if k != "image_t_style"}
+    host_leaves = {"image_s": (MAIN_B, MAIN_IMAGE, MAIN_IMAGE, 3),
+                   "target_s": (MAIN_B, 18, MAIN_HEATMAP, MAIN_HEATMAP),
+                   "weight_s": (MAIN_B, 18, 1),
+                   "image_t_stu": (MAIN_B, MAIN_IMAGE, MAIN_IMAGE, 3),
+                   "images_t_tea": (MAIN_KV, MAIN_B, MAIN_IMAGE, MAIN_IMAGE, 3),
+                   "aug_param_stu": (MAIN_B, 6), "aug_params_tea": (MAIN_KV, MAIN_B, 6)}
+    record["h2d_bytes_per_adapt_iteration"] = {
+        "device_aug": sum(t.numel() * t.element_size() for t in raw_adapt.values()),
+        "host_aug": 4 * sum(int(np.prod(s)) for s in host_leaves.values())}
+    record["views_s"] = time.perf_counter() - t0
+
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    state = create_state(pose_resnet101(num_keypoints=18, dtype=torch.bfloat16), cfg, seed=0,
+                         device=device)
+    _reset_counts()
+    record["held_against_eager"] = {
+        "adapt": _held_against_eager(device, state, style, raw_adapt,
+                                     view_builder=pipe.view_builder, sync_check=True),
+        "pretrain": _pretrain_held_against_eager(device, state, style, build, raw)}
+    launches = _read_counts()
+    record["replays_s"] = time.perf_counter() - t0 - record["views_s"]
+    del state, style
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, launches
+
+
 def animal_script_line(program):
     """The flags of ``script``'s ``train_animal.py`` or
     ``train_animal_other.py`` line."""
@@ -3160,7 +3372,9 @@ def animal_script_line(program):
 
 # phase trainer_animals' runs: (name, program, extra flags, occlusion_warp
 # launches); "{decoder}" is the checkpoint of the AdaIN run, "{two_passes}"
-# the iterations of two passes over the synthetic training set
+# the iterations of two passes over the synthetic training set,
+# "{two_passes_bundled}" the same rounded up to whole bundles of 4,
+# "{long_tree}" the image path of ANIMAL_LONG_TREES
 ANIMAL_RUNS = (
     ("adapt", "train_animal.py", ["--pretrain-epoch", "-1", "-i", "3"], 3),
     ("pretrain", "train_animal.py", ["--pretrain-epoch", "1", "-i", "3"], 0),
@@ -3171,8 +3385,59 @@ ANIMAL_RUNS = (
     ("adapt_trained_decoder_decode_cache", "train_animal.py",
      ["--pretrain-epoch", "-1", "-i", "{two_passes}", "--decoder-name", "{decoder}",
       "--decode-cache", "1"], "{two_passes}"),
+    ("adapt_device_aug", "train_animal.py", ["--pretrain-epoch", "-1", "-i", "3", "--device-aug"],
+     3),
+    ("pretrain_device_aug_bundled", "train_animal.py",
+     ["--pretrain-epoch", "1", "-i", "4", "--device-aug", "--steps-per-dispatch", "4"], 0),
+    ("adapt_device_aug_bundled_decode_cache", "train_animal.py",
+     ["--pretrain-epoch", "-1", "-i", "{two_passes_bundled}", "--device-aug",
+      "--steps-per-dispatch", "4", "--decode-cache", "1"], "{two_passes_bundled}"),
+    ("steady_adapt", "train_animal.py",
+     ["--pretrain-epoch", "-1", "-i", "24", "--image-path", "{long_tree}"], 24),
+    ("steady_adapt_device_aug", "train_animal.py",
+     ["--pretrain-epoch", "-1", "-i", "24", "--image-path", "{long_tree}", "--device-aug"], 24),
 )
+# the host-path run each --device-aug run is read beside
+ANIMAL_HOST_TWIN = {"adapt_device_aug": "adapt", "pretrain_device_aug_bundled": "pretrain",
+                    "adapt_device_aug_bundled_decode_cache": "adapt_trained_decoder_decode_cache",
+                    "steady_adapt_device_aug": "steady_adapt"}
 ANIMAL_DECODER_ITERS = 40
+
+
+def animal_item_ms(image_path, items=16):
+    """Host ms an item (this process, one thread, after one warm item) of
+    the train_animal line's training sets at MAIN_IMAGE/MAIN_HEATMAP: the
+    synthetic source in raw mode (--device-aug: decode only) and with its
+    imgaug chain, flip and crop (the host path), and the TigDog _mt set
+    with identity views (--device-aug) and with its affine views (the
+    host path)."""
+    from uda_poseestimation_torch import data as tdata
+    from uda_poseestimation_torch.data import transforms as T
+
+    kw = dict(animal="all", image_path=image_path, inp_res=MAIN_IMAGE, out_res=MAIN_HEATMAP,
+              sigma=1, scale_factor=0.25, rot_factor=30, label_type="Gaussian",
+              train_on_all_cat=True)
+    identity = T.Compose([T.IdentityAffine(), T.ToTensor()])
+    affine = T.Compose([T.RandomAffineRotation(60, (-30, 30), (0.05, 0.05), (0.6, 1.3)),
+                        T.ToTensor()])
+    sets = {"synthetic_raw": lambda: tdata.synthetic_animal_sp_all(is_train=True,
+                                                                   raw_mode=True, **kw),
+            "synthetic_host_aug": lambda: tdata.synthetic_animal_sp_all(is_train=True, **kw),
+            "tigdog_mt_identity_views": lambda: tdata.real_animal_all_mt(
+                is_train=True, k=1, transforms_stu=identity, transforms_tea=identity, **kw),
+            "tigdog_mt_affine_views": lambda: tdata.real_animal_all_mt(
+                is_train=True, k=1, transforms_stu=affine, transforms_tea=affine, **kw)}
+    out = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, make in sets.items():
+            ds = make()
+            ds[0]
+            n = min(items, len(ds) - 1)
+            t = time.perf_counter()
+            for i in range(1, n + 1):
+                ds[i]
+            out[name] = (time.perf_counter() - t) / n * 1e3
+    return out
 
 
 def phase_trainer_animals(device, work_dir):
@@ -3193,7 +3458,13 @@ def phase_trainer_animals(device, work_dir):
     time (build_data), first-batch wait, the median Time and Data of the
     iterations after the first, each validation's seconds and items, the
     parent's RSS, and for --decode-cache the frame caches' counts. Returns
-    the launches of each run."""
+    the launches of each run. The --device-aug runs follow, each
+    read beside its host-path twin (ANIMAL_HOST_TWIN), the last pair over
+    24 iterations on trees of 20 batches a pass (ANIMAL_LONG_TREES: the
+    other trees' passes of 2-3 batches make every few iterations wait for
+    a new pass); before the runs, ``animal_item_ms`` times each training
+    set's items on the host and ``animal_views_on_card`` checks and times
+    the animal view builder."""
     import multiprocessing
 
     import torch
@@ -3206,6 +3477,9 @@ def phase_trainer_animals(device, work_dir):
     write_fake_synthetic_animals(root)
     write_fake_tigdog(root)
     write_fake_animal_pose(root)
+    long_root = os.path.join(work_dir, "animals_long")
+    write_fake_synthetic_animals(long_root, ANIMAL_LONG_TREES["synthetic"])
+    write_fake_tigdog(long_root, ANIMAL_LONG_TREES["tigdog"])
     write_style_weights(work_dir)
     fixture_s = time.perf_counter() - t0
     image_path = os.path.join(root, "animal_data")
@@ -3220,6 +3494,7 @@ def phase_trainer_animals(device, work_dir):
         record["construct_s"] = time.perf_counter() - t
         record["rss_kb_after_construction"] = _rss_kb()
         record["datasets"] = (out.train_source_dataset, out.train_target_loader.dataset)
+        record["source_items"] = out.train_source_loader.dataset
         return out
 
     def timed_validate(eval_step, model, loader, args, visualize=None):
@@ -3230,18 +3505,27 @@ def phase_trainer_animals(device, work_dir):
         return out
 
     cfg = ANIMAL_TREES["synthetic"]
-    fill = {"{two_passes}": str(2 * (len(cfg["animals"]) * cfg["train"] // MAIN_B))}
-    launches = {}
+    per_pass = len(cfg["animals"]) * cfg["train"] // MAIN_B
+    fill = {"{two_passes}": str(2 * per_pass),
+            "{two_passes_bundled}": str(-(-2 * per_pass // 4) * 4),
+            "{long_tree}": os.path.join(long_root, "animal_data")}
+    runs = {}
     cwd, fuse_env = os.getcwd(), os.environ.pop("UDA_BN_FUSE", None)
     cache_env = os.environ.get("UDA_CACHED_DATA_DIR")
     os.environ["UDA_CACHED_DATA_DIR"] = os.path.join(root, "cached_data")
     train_animal.build_data, train_animal.run_validate = timed_build, timed_validate
     os.chdir(work_dir)
     try:
+        item_ms = animal_item_ms(image_path)
+        views, view_launches = animal_views_on_card(device)
+        emit({"phase": "trainer_animals", "host_ms_per_item": item_ms, "views": views,
+              "launches": view_launches})
+        launches = {"views_held_against_eager": view_launches}
         for name, program, extra, warps in ANIMAL_RUNS:
             record.clear()
             printed = io.StringIO()
             if program is None:  # the AdaIN animal CLI
+                os.environ["UDA_CACHED_DATA_DIR"] = os.path.join(root, "cached_data")
                 args = adain_cli.build_parser().parse_args(
                     ["--source", "synthetic_animal_sp_all", "--target_ssl",
                      "real_animal_all_mt", "--image-path", image_path, "--train_on_all_cat",
@@ -3281,6 +3565,9 @@ def phase_trainer_animals(device, work_dir):
                     "--decoder-name", "saved_models/decoder_rand.pth", "--device", str(device),
                     "--log", f"logs/animal_{name}"] + [fill.get(tok, tok) for tok in extra]
                 args = train_animal.build_parser().parse_args(argv)
+                # the index and mean files of the run's tree
+                os.environ["UDA_CACHED_DATA_DIR"] = os.path.join(
+                    os.path.dirname(args.image_path), "cached_data")
                 categories = ("dog", "sheep") if program == "train_animal_other.py" \
                     else ("horse", "tiger")
                 with contextlib.redirect_stdout(printed):
@@ -3313,12 +3600,25 @@ def phase_trainer_animals(device, work_dir):
                 if args.decode_cache:
                     caches = {side: ds._frames for side, ds in
                               zip(("source", "target"), record["datasets"])}
+                    if args.device_aug:  # the raw source's items: a CachedDataset
+                        caches["source"] = record["source_items"]
                     run["decode_cache"] = {side: {"hits": c.hits, "misses": c.misses,
-                                                  "items_cached": c.items_cached}
+                                                  "items_cached": c.items_cached,
+                                                  "bytes_used": c.bytes_used}
                                            for side, c in caches.items()}
-                    run["decode_cache_bytes_used"] = caches["source"].bytes_used
+                    used = caches["target"].bytes_used  # the frame arena of the run
+                    if args.device_aug:
+                        used = caches["source"].bytes_used
+                        # every source item decoded once in the first pass, a
+                        # hit in each later fetch (whole passes of whole
+                        # batches; the last pass may be prefetched in part)
+                        n_src = len(cfg["animals"]) * cfg["train"]
+                        c = caches["source"]
+                        if not (c.items_cached == c.misses == n_src
+                                and c.hits >= args.iters_per_epoch * MAIN_B - n_src):
+                            raise AssertionError(f"run {name}: cache {run['decode_cache']}")
                     if not (all(c.hits > 0 for c in caches.values())
-                            and 0 < caches["source"].bytes_used <= args.decode_cache * 1e9):
+                            and 0 < used <= args.decode_cache * 1e9):
                         raise AssertionError(f"run {name}: cache {run['decode_cache']}")
             record.clear()
             gc.collect()
@@ -3327,6 +3627,7 @@ def phase_trainer_animals(device, work_dir):
             want = dict(none, occlusion_warp=int(fill.get(warps, warps)))
             if launches[name] != want:
                 raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
+            runs[name] = run
             emit({"phase": "trainer_animals", "run": name, **run, "rss_kb_end": _rss_kb(),
                   "launches": launches[name]})
     finally:
@@ -3338,8 +3639,16 @@ def phase_trainer_animals(device, work_dir):
             os.environ.pop("UDA_CACHED_DATA_DIR", None)
         else:
             os.environ["UDA_CACHED_DATA_DIR"] = cache_env
+    keys = ("wall_s", "first_batch_s", "time_s_median_after_first",
+            "data_s_median_after_first", "decode_cache")
+    emit({"phase": "trainer_animals", "device_aug_beside_host": {
+        name: {"device_aug": {k: runs[name].get(k) for k in keys},
+               "host": {k: runs[host].get(k) for k in keys}}
+        for name, host in ANIMAL_HOST_TWIN.items()},
+        "card": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi_line()})
     emit({"phase": "trainer_animals", "workers": workers, "fake_trees": ANIMAL_TREES,
-          "fixture_s": fixture_s, "seconds": time.perf_counter() - t0})
+          "long_trees": ANIMAL_LONG_TREES, "fixture_s": fixture_s,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 

@@ -7,8 +7,10 @@ and ``train_animal_other.py`` (the JAX package's trainers).
   port adds only ``--device``, and its ``-a`` choices are its own
   constructors. Both animal lines of ``script`` parse to the same
   namespace in both packages.
-- ``--device-aug`` and the ``--dist-*`` flags raise at start, naming their
-  ROADMAP item; without a card and without ``--device cpu`` the CLI raises.
+- The ``--dist-*`` flags raise at start, naming their ROADMAP item; without
+  a card and without ``--device cpu`` the CLI raises. (``--device-aug`` is
+  held in ``tests/test_torch_animal_device_aug.py`` and
+  ``tests/test_torch_train_animal_device_aug.py``.)
 - The datasets and the per-category evaluation sets are built in the JAX
   trainer's order, with the same keywords, and ``args.animal`` is left at
   the last category, as the JAX trainer leaves it.
@@ -138,7 +140,6 @@ def test_script_lines_parse_alike(program):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--device-aug"], "A9, animal half"),
     (["--dist-coordinator", "localhost:1"], "A12"),
     (["--dist-num-processes", "2"], "A12"), (["--dist-process-id", "1"], "A12")])
 def test_unported_flags_raise(tmp_path, monkeypatch, flags, item):
@@ -236,13 +237,19 @@ GATES = dict(do_s2t=True, alpha_s2t=0.7, do_t2s=True, alpha_t2s=0.3)
 ANIMAL18_GROUPS = ("eye", "chin", "hoof", "hip", "knee", "shoulder", "elbow", "all")
 
 
-def _models():
+def _models(jit_init=False):
     """A tiny JAX PoseResNet with 18 keypoints and a StyleNet, and the port's
-    twins with the same weights (scaled as test_torch_train_step's are)."""
+    twins with the same weights (scaled as test_torch_train_step's are).
+    ``jit_init`` initializes them jitted: ~9 s against ~24 s eagerly on the
+    CPU, with weights that differ from the eager ones by float rounding."""
     jmodel = JPoseResNet(backbone=JResNet(block=JBottleneck, stage_sizes=(1, 1, 1, 1)),
                          num_keypoints=K)
-    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(0),
-                                           jnp.zeros((1, 64, 64, 3)), train=False))
+
+    def init(module, *args, **kwargs):
+        fn = functools.partial(module.init, **kwargs)
+        return jax.device_get((jax.jit(fn) if jit_init else fn)(*args))
+
+    variables = init(jmodel, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False)
     params = jax.tree_util.tree_map(np.array, variables["params"])
     for i in range(3):
         params["upsampling"][f"deconv{i}"]["kernel"] *= 30.0
@@ -250,8 +257,8 @@ def _models():
     variables = {"params": params, "batch_stats": variables["batch_stats"]}
     jstyle = JStyleNet()
     dummy = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    style_params = jax.tree_util.tree_map(np.array, jax.device_get(
-        jstyle.init(jax.random.PRNGKey(1), dummy, dummy)["params"]))
+    style_params = jax.tree_util.tree_map(
+        np.array, init(jstyle, jax.random.PRNGKey(1), dummy, dummy)["params"])
     style_params["decoder"]["conv8"]["Conv_0"]["kernel"] *= 1000.0
     tmodel = weights.load_pose_resnet(PoseResNet(ResNet(Bottleneck, (1, 1, 1, 1)), K),
                                       variables)

@@ -7,8 +7,9 @@ with ``device="cpu"``.
 
 ``device_scalar`` and ``device_vector`` make the steps' constants on their
 device without a copy from host memory, which a CUDA graph's capture forbids.
-``full_f32`` runs float32 products in full float32 where the JAX package
-asks for ``precision="float32"``.
+``full_f32`` runs float32 products and convolutions in full float32 where
+the JAX package asks for ``precision="float32"`` or computes on the CPU in
+float32.
 """
 
 from __future__ import annotations
@@ -54,11 +55,12 @@ def device_vector(values, device, dtype: torch.dtype = torch.float32) -> torch.T
 
 @contextlib.contextmanager
 def full_f32(device: torch.device):
-    """float32 products: TF32 and autocast off inside, restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 products and convolutions: TF32 (cuBLAS's and cuDNN's) and
+    autocast off inside, restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.autocast(device.type, enabled=False):
             yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

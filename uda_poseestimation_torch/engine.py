@@ -3,9 +3,8 @@
 PyTorch twin of ``uda_poseestimation_tpu/engine.py`` (the reference
 implements these loops in train_human.py:244-500): one iteration per step
 call, or with ``--steps-per-dispatch n > 1`` and a bundler
-(``parallel/train_step.py``) n iterations per bundler call; the on-device
-augmentation mode (``--device-aug``, ROADMAP A9) is not ported. It keeps
-what a user of the JAX engine can observe:
+(``parallel/train_step.py``) n iterations per bundler call. It keeps what a
+user of the JAX engine can observe:
 
 - the same meter names and ``ProgressMeter`` lines;
 - the host RNG draws in the reference's order: per iteration one
@@ -23,12 +22,13 @@ what a user of the JAX engine can observe:
   iteration's Time the bundle's divided by its steps, a trailing partial
   bundle when n does not divide the epoch, and the same draws, target
   advances and log lines as the loops above (they pass no debug images);
-- ``--device-aug`` (``DeviceAugPipeline``, ROADMAP A9): the loaders give
-  raw uint8 canvases and the views are built on the device, inside the
-  adapt step (and the bundled pretrain step) or, in the unbundled pretrain
-  loop, just before the step, with the JAX loops' fetch order: the target
-  is fetched in pretraining only when s2t fires, and a bundle's other
-  iterations carry zero style canvases (``pretrain_style_template``).
+- ``--device-aug`` (``DeviceAugPipeline`` for the human trainer,
+  ``AnimalDeviceAugPipeline`` for the animal ones): the loaders give raw
+  uint8 canvases or frames and the views are built on the device, inside
+  the adapt step (and the bundled pretrain step) or, in the unbundled
+  pretrain loop, just before the step, with the JAX loops' fetch order: the
+  target is fetched in pretraining only when s2t fires, and a bundle's
+  other iterations carry zero style inputs (``pretrain_style_template``).
 
 Batches stay on the host until the step copies them to its device
 (``parallel/train_step.py``), asynchronously from page-locked memory, which
@@ -44,15 +44,17 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .ops.device_aug import augment_views, draw_rrc, draw_view, rrc_views
+from .ops.device_aug import (animal_source_views, animal_views, augment_views,
+                              draw_animal_source, draw_rrc, draw_view, rrc_views)
 from .ops.pck import get_max_preds_np
 from .utils.meter import AverageMeter, AverageMeterList, ProgressMeter
 
 
 def _f32(x) -> torch.Tensor:
-    """A batch leaf as a float32 tensor; a float32 tensor is returned as it
-    is (its memory, page-locked or not, is kept)."""
-    return torch.as_tensor(x).to(torch.float32)
+    """A batch leaf as a float32 tensor, page-locked when the loader's was
+    (a float32 tensor is returned as it is)."""
+    t = torch.as_tensor(x)
+    return _pinned_like(t.to(torch.float32), t)
 
 
 def _stack_views(views) -> torch.Tensor:
@@ -93,33 +95,18 @@ def _pinned_like(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return out.pin_memory() if like.is_pinned() else out
 
 
-class DeviceAugPipeline:
-    """``--device-aug``: every augmented view drawn and rendered on the
-    device (``ops/device_aug.py``; the JAX package's ``DeviceAugPipeline``).
+class _DeviceAugBase:
+    """What both ``--device-aug`` pipelines share: the device, the
+    pipeline's own generator (seeded from ``seed``; the JAX pipeline's key
+    stream) and the zero style inputs of a bundled pretrain iteration whose
+    s2t gate did not fire."""
 
-    The host datasets give one canvas per sample (Resize + ToUint8Canvas,
-    identity ``aug_param``); the batches cross to the device as uint8,
-    page-locked when the loader pins them, and are divided by 255 there.
-    ``view_builder`` makes the adapt step's batch from them inside the step
-    (``make_adapt_step(view_builder=...)``): the source view, one shared
-    RandomResizedCrop base view of the target and from it the student view
-    and k teacher views. ``pretrain_view_builder`` does the same for the
-    pretrain step, the style image only when s2t fires. The unbundled
-    pretrain loop calls ``prep_source`` and ``style_image`` itself.
+    # the unbundled pretrain loop's debug images draw the source's keypoint2d
+    host_visualizable = True
+    # the pretrain phase takes raw batches too (else only the adapt phase)
+    source_on_device = True
 
-    Draws come from ``generator`` where one is given (the adapt step's
-    occlusion generator), else from ``self.generator``, a generator on the
-    device seeded from ``seed`` (the JAX pipeline's own key stream); or
-    injected as ``draws``: {"source": ``draw_view`` of (1, B)} and
-    {"target": {"base": ``draw_rrc`` of (B,), "student": (1, B), "teacher":
-    (k, B)}}, drawn in that order.
-    """
-
-    def __init__(self, cfg_src, cfg_stu, cfg_tea, k: int, mean, std, seed: int = 0,
-                 device: DeviceLike = None):
-        self.cfg_src, self.cfg_stu, self.cfg_tea = cfg_src, cfg_stu, cfg_tea
-        self.k = k
-        self.mean, self.std = tuple(mean), tuple(std)
+    def __init__(self, seed: int, device: DeviceLike):
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -133,6 +120,48 @@ class DeviceAugPipeline:
 
     def _gen(self, generator):
         return self.generator if generator is None else generator
+
+    def style_zeros(self, template, like) -> dict:
+        """The zeros of ``template``, made once per shape (page-locked when
+        ``like`` is)."""
+        key = tuple(sorted((k, s, str(d)) for k, (s, d) in template.items()))
+        if key not in self._zeros:
+            self._zeros[key] = {k: _pinned_like(torch.zeros(s, dtype=d), like)
+                                for k, (s, d) in template.items()}
+        return self._zeros[key]
+
+    def _put(self, tensors):
+        return tuple(t.to(self.device, non_blocking=True) for t in tensors)
+
+
+class DeviceAugPipeline(_DeviceAugBase):
+    """``--device-aug`` for the human trainer: every augmented view drawn and
+    rendered on the device (``ops/device_aug.py``; the JAX package's
+    ``DeviceAugPipeline``).
+
+    The host datasets give one canvas per sample (Resize + ToUint8Canvas,
+    identity ``aug_param``); the batches cross to the device as uint8,
+    page-locked when the loader pins them, and are divided by 255 there.
+    ``view_builder`` makes the adapt step's batch from them inside the step
+    (``make_adapt_step(view_builder=...)``): the source view, one shared
+    RandomResizedCrop base view of the target and from it the student view
+    and k teacher views. ``pretrain_view_builder`` does the same for the
+    pretrain step, the style image only when s2t fires. The unbundled
+    pretrain loop calls ``prep_source`` and ``style_image`` itself.
+
+    Draws come from ``generator`` where one is given (the adapt step's
+    occlusion generator), else from ``self.generator``; or injected as
+    ``draws``: {"source": ``draw_view`` of (1, B)} and {"target": {"base":
+    ``draw_rrc`` of (B,), "student": (1, B), "teacher": (k, B)}}, drawn in
+    that order.
+    """
+
+    def __init__(self, cfg_src, cfg_stu, cfg_tea, k: int, mean, std, seed: int = 0,
+                 device: DeviceLike = None):
+        super().__init__(seed, device)
+        self.cfg_src, self.cfg_stu, self.cfg_tea = cfg_src, cfg_stu, cfg_tea
+        self.k = k
+        self.mean, self.std = tuple(mean), tuple(std)
 
     def draw_source(self, b: int, canvas: int, generator=None) -> dict:
         return draw_view(self.cfg_src, (1, b), canvas, self.device, self._gen(generator))
@@ -246,18 +275,6 @@ class DeviceAugPipeline:
                 "kp_t": (tuple(raw_batch["kp_s"].shape), torch.float32),
                 "vis_t": (tuple(raw_batch["vis_s"].shape), torch.float32)}
 
-    def style_zeros(self, template, like) -> dict:
-        """The zeros of ``template``, made once per shape (page-locked when
-        ``like`` is)."""
-        key = tuple(sorted((k, s, str(d)) for k, (s, d) in template.items()))
-        if key not in self._zeros:
-            self._zeros[key] = {k: _pinned_like(torch.zeros(s, dtype=d), like)
-                                for k, (s, d) in template.items()}
-        return self._zeros[key]
-
-    def _put(self, tensors):
-        return tuple(t.to(self.device, non_blocking=True) for t in tensors)
-
     def raw_source(self, src_tuple):
         """(canvas, keypoints, visibility) of a source batch on the device."""
         x, _t, weight, meta = src_tuple
@@ -272,6 +289,162 @@ class DeviceAugPipeline:
         """The normalized style image of an unbundled pretrain s2t draw: the
         first teacher view, drawn from ``self.generator``."""
         return self.prep_target(*self.raw_target(tgt_tuple))[2][0]
+
+
+class AnimalDeviceAugPipeline(_DeviceAugBase):
+    """``--device-aug`` for the animal trainers: every random view drawn and
+    rendered on the device (the JAX package's ``AnimalDeviceAugPipeline``).
+
+    The target's ``_mt`` set gives its uint8 crop at ``inp_res`` with the
+    keypoints in the original frame, their visibility, the crop's center and
+    scale (``canvas``, ``kp_orig``, ``vis``, ``center``, ``scale`` in the
+    student's meta); the student view and the k teacher views are warped
+    from it on the device (``animal_views``, normalized by ``mean`` only).
+    With ``src_cfg`` the synthetic source's raw set (``raw_mode``) gives its
+    decoded uint8 frames with their keypoints, centers and scales, and its
+    imgaug chain, flip, crop and targets run on the device too
+    (``animal_source_views``, with ``flip_perm``, ``src_mean`` and
+    ``src_is_aug``); without, the source's host batch passes through (its
+    ``image_s``, ``target_s`` and ``weight_s``) and only the adapt phase
+    takes raw batches.
+
+    ``view_builder`` makes the adapt step's batch inside the step;
+    ``pretrain_view_builder`` the pretrain step's, whose style image is the
+    host-normalized identity teacher view as it is (the ``_mt`` sets
+    normalize their teacher views on the host under ``--device-aug`` too:
+    what the reference feeds). The source's keypoint2d exists on the device
+    only (``host_visualizable``). Draws come from ``generator``, else from
+    ``self.generator``, or injected as ``draws``: {"target": {"student":
+    ``draw_view`` of (1, B), "teacher": (k, B)}, "source":
+    ``draw_animal_source`` of B}, drawn in that order.
+    """
+
+    host_visualizable = False
+
+    def __init__(self, cfg_stu, cfg_tea, k: int, mean, label_type: str = "Gaussian",
+                 seed: int = 0, device: DeviceLike = None, src_cfg=None, flip_perm=None,
+                 src_mean=None, src_is_aug: bool = True):
+        super().__init__(seed, device)
+        self.cfg_stu, self.cfg_tea, self.k = cfg_stu, cfg_tea, k
+        self.mean = tuple(float(v) for v in mean)
+        self.label_type = label_type
+        self.src_cfg = src_cfg
+        self.source_on_device = src_cfg is not None
+        self.flip_perm = (None if flip_perm is None else
+                          torch.as_tensor(np.asarray(flip_perm, np.int64)).to(self.device))
+        self.src_mean = None if src_mean is None else tuple(float(v) for v in src_mean)
+        self.src_is_aug = src_is_aug
+
+    def draw_target(self, b: int, generator=None) -> dict:
+        g, size = self._gen(generator), self.cfg_stu.image_size
+        return {"student": draw_view(self.cfg_stu, (1, b), size, self.device, g),
+                "teacher": draw_view(self.cfg_tea, (self.k, b), size, self.device, g)}
+
+    def draw_source(self, b: int, generator=None) -> dict:
+        return draw_animal_source(self.src_cfg, b, self.device, self._gen(generator))
+
+    def prep_source(self, canvas, pts, center, scale, generator=None, draws=None):
+        """The source views: (image, target, target_weight, keypoint2d)."""
+        if draws is None:
+            draws = self.draw_source(canvas.shape[0], generator)
+        out = animal_source_views(canvas, pts, center, scale, self.flip_perm, self.src_cfg,
+                                  draws, mean=self.src_mean, is_aug=self.src_is_aug)
+        return out["image"], out["target"], out["target_weight"], out["keypoint2d"]
+
+    def prep_target(self, canvas, kp, vis, center, scale, generator=None, draws=None):
+        """The target views: (student image, its aug_param, the k teacher
+        images (k, B, ...), their aug_params (k, B, 6))."""
+        c = self.dev_canvas(canvas)
+        if draws is None:
+            draws = self.draw_target(c.shape[0], generator)
+        stu, tea = (animal_views(c, kp, vis, center, scale, cfg, draws[name], self.mean,
+                                 self.label_type, targets=False)
+                    for cfg, name in ((self.cfg_stu, "student"), (self.cfg_tea, "teacher")))
+        return stu["image"][0], stu["aug_param"][0], tea["image"], tea["aug_param"]
+
+    def view_builder(self, raw_batch, generator=None, draws=None) -> dict:
+        """The adapt step's batch from a raw one, on the raw batch's device
+        (pass to ``make_adapt_step(view_builder=...)``)."""
+        draws = draws or {}
+        x_t_stu, aug_stu, x_t_teas, aug_teas = self.prep_target(
+            raw_batch["canvas_t"], raw_batch["kp_t"], raw_batch["vis_t"],
+            raw_batch["center_t"], raw_batch["scale_t"], generator, draws.get("target"))
+        if self.src_cfg is not None:
+            img_s, tgt_s, w_s, _kp = self.prep_source(
+                raw_batch["canvas_s"], raw_batch["pts_s"], raw_batch["center_s"],
+                raw_batch["scale_s"], generator, draws.get("source"))
+        else:
+            img_s, tgt_s, w_s = (raw_batch[k] for k in ("image_s", "target_s", "weight_s"))
+        return {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s,
+                "image_t_stu": x_t_stu, "images_t_tea": x_t_teas,
+                "aug_param_stu": aug_stu, "aug_params_tea": aug_teas}
+
+    def pretrain_view_builder(self, style_enabled: bool):
+        """The pretrain step's builder, ``build(raw_batch, do_s2t,
+        generator=None, draws=None)``: the source views, and the style image
+        passed through when style is on and s2t fires. Needs ``src_cfg``."""
+        if self.src_cfg is None:
+            raise ValueError("the animal pretrain view builder needs src_cfg "
+                             "(the source's raw frames on the device)")
+
+        def build(raw_batch, do_s2t, generator=None, draws=None):
+            img_s, tgt_s, w_s, _kp = self.prep_source(
+                raw_batch["canvas_s"], raw_batch["pts_s"], raw_batch["center_s"],
+                raw_batch["scale_s"], generator, (draws or {}).get("source"))
+            out = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
+            if style_enabled and do_s2t:
+                out["image_t_style"] = raw_batch["image_t_style"]
+            return out
+
+        return build
+
+    @staticmethod
+    def _raw_source(meta) -> dict:
+        return {"canvas_s": torch.as_tensor(meta["canvas"]), "pts_s": _f32(meta["pts"]),
+                "center_s": _f32(meta["center"]), "scale_s": _f32(meta["scale"])}
+
+    def raw_adapt_batch(self, src_tuple, tgt_tuple) -> dict:
+        """The raw adapt batch, on the host: the step copies it to its device
+        (a bundler stages it)."""
+        meta = tgt_tuple[3]
+        canvas_t = torch.as_tensor(meta["canvas"])
+        if canvas_t.dtype != torch.uint8:  # a float canvas in [0, 255]
+            canvas_t = _f32(canvas_t) / 255.0
+        batch = {"canvas_t": canvas_t, "kp_t": _f32(meta["kp_orig"]),
+                 "vis_t": _f32(meta["vis"]), "center_t": _f32(meta["center"]),
+                 "scale_t": _f32(meta["scale"])}
+        if self.src_cfg is not None:
+            batch.update(self._raw_source(src_tuple[3]))
+        else:
+            x_s, label_s, weight_s, _meta = src_tuple
+            batch.update(image_s=_f32(x_s), target_s=_f32(label_s), weight_s=_f32(weight_s))
+        return batch
+
+    def raw_pretrain_batch(self, src_tuple, tgt_tuple=None) -> dict:
+        """The raw pretrain batch of one iteration, on the host; ``tgt_tuple``
+        gives the style image when the s2t gate fired."""
+        batch = self._raw_source(src_tuple[3])
+        if tgt_tuple is not None:
+            batch["image_t_style"] = _f32(tgt_tuple[4][0])
+        return batch
+
+    def pretrain_style_template(self, raw_batch) -> dict:
+        """{style leaf: (shape, dtype)} of the zeros a bundled pretrain
+        iteration whose s2t gate did not fire carries: the identity teacher
+        view at image size."""
+        size = self.cfg_stu.image_size
+        return {"image_t_style": ((raw_batch["canvas_s"].shape[0], size, size, 3),
+                                  torch.float32)}
+
+    def raw_source(self, src_tuple):
+        """(frames, keypoints, centers, scales) of a source batch on the
+        device, for ``prep_source``."""
+        return self._put(self._raw_source(src_tuple[3]).values())
+
+    def style_image(self, tgt_tuple) -> torch.Tensor:
+        """The style image of an unbundled pretrain s2t draw: the identity
+        teacher view, as the host normalized it."""
+        return self._put([_f32(tgt_tuple[4][0])])[0]
 
 
 def _stack_host_leaves(batches) -> list:
@@ -336,7 +509,8 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
     the target's first teacher view as the style image when the s2t gate
     fires, and zeros otherwise. With ``bundler`` (a ``PretrainStepBundler``)
     and ``args.steps_per_dispatch > 1`` the epoch runs n iterations per
-    bundler call. With ``device_aug`` (a ``DeviceAugPipeline``) the batches
+    bundler call. With ``device_aug`` (a ``DeviceAugPipeline``, or an
+    ``AnimalDeviceAugPipeline`` whose source is on the device) the batches
     are raw canvases: the unbundled loop builds the views on the device
     before each step, the bundler's step builds them itself. Returns the
     state."""
@@ -381,7 +555,8 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
             raw = device_aug.raw_source((x_s, label_s, weight_s, meta_s))
             img_s, tgt_s, w_s, kp_aug = device_aug.prep_source(*raw)
             batch = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
-            meta_s = {"keypoint2d": kp_aug}
+            # the animal source's keypoint2d exists on the device only
+            meta_s = {"keypoint2d": kp_aug if device_aug.host_visualizable else None}
             if style_enabled:
                 batch["image_t_style"] = (device_aug.style_image(next(target_iter))
                                           if do_s2t else torch.zeros_like(img_s))
@@ -411,8 +586,8 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
     on the state's device, seeded per epoch from ``np.random``. With
     ``bundler`` (an ``AdaptStepBundler``) and ``args.steps_per_dispatch >
     1`` the epoch runs n iterations per bundler call. With ``device_aug`` (a
-    ``DeviceAugPipeline``) the batches are raw canvases, for a step made
-    with its ``view_builder``. Returns the state."""
+    ``DeviceAugPipeline`` or an ``AnimalDeviceAugPipeline``) the batches are
+    raw, for a step made with its ``view_builder``. Returns the state."""
     batch_time = AverageMeter("Time", ":4.2f")
     data_time = AverageMeter("Data", ":3.1f")
     losses_all = AverageMeter("Loss (all)", ":.4e")
@@ -544,8 +719,8 @@ def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, ar
     iteration it fetches the source, draws the s2t gate and fetches a target
     only when the gate fires, as the unbundled loop does, so both consume
     the same streams. With ``device_aug`` an iteration whose gate did not
-    fire carries zero style canvases, shaped as a fired one's or, before
-    any fired, by ``pretrain_style_template``."""
+    fire carries zero style inputs, shaped as a fired one's or, before any
+    fired, by ``pretrain_style_template``."""
     data_time = meters[1]
     flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s"))
     dummy_style = _DummyStyle()
@@ -554,14 +729,14 @@ def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, ar
     i = 0
     while i < args.iters_per_epoch:
         n_sub = min(n_bundle, args.iters_per_epoch - i)
-        batches, gates = [], []
+        batches, gates, fired = [], [], []
         for _ in range(n_sub):
             src = next(source_iter)
             do_s2t, alpha = gate.draw()
-            fired = style_enabled and do_s2t
+            fired.append(style_enabled and do_s2t)
             if device_aug is not None:
                 batches.append(device_aug.raw_pretrain_batch(
-                    src, next(target_iter) if fired else None))
+                    src, next(target_iter) if fired[-1] else None))
             else:
                 x_s, label_s, weight_s, _meta = src
                 image_t_style = None
@@ -571,9 +746,10 @@ def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, ar
             gates.append((do_s2t, alpha))
         if device_aug is not None:
             if style_enabled:
-                style_tpl = _style_template(device_aug, batches, style_tpl)
-                for b in batches:
-                    if "canvas_t" not in b:
+                if style_tpl is None or not all(fired):
+                    style_tpl = _style_template(device_aug, batches, fired, style_tpl)
+                for b, f in zip(batches, fired):
+                    if not f:
                         b.update(device_aug.style_zeros(style_tpl, b["canvas_s"]))
             batches = _stack_host_leaves(batches)
         data_time.update(time.time() - end[0])
@@ -599,14 +775,14 @@ def _batch_size(batch) -> int:
     return len(batch["image_s"] if "image_s" in batch else batch["canvas_s"])
 
 
-def _style_template(device_aug, batches, known):
-    """The zero style canvases' spec (JAX ``_run_pretrain_epoch_bundled``):
-    a fired batch's own shapes and dtypes when the bundle has one, else the
+def _style_template(device_aug, batches, fired, known):
+    """The zero style inputs' spec (JAX ``_run_pretrain_epoch_bundled``): a
+    fired batch's own shapes and dtypes when the bundle has one, else the
     spec already known, else ``pretrain_style_template`` of the first."""
-    fired = next((b for b in batches if "canvas_t" in b), None)
-    if fired is not None:
-        return {k: (tuple(fired[k].shape), fired[k].dtype)
-                for k in device_aug.pretrain_style_template(fired)}
+    fired_b = next((b for b, f in zip(batches, fired) if f), None)
+    if fired_b is not None:
+        return {k: (tuple(fired_b[k].shape), fired_b[k].dtype)
+                for k in device_aug.pretrain_style_template(fired_b)}
     return known if known is not None else device_aug.pretrain_style_template(batches[0])
 
 

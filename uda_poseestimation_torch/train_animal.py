@@ -16,11 +16,22 @@ builds by setting ``args.animal`` to each in turn, as the reference does
 ``--pretrain-epoch`` and ``--steps-per-dispatch`` are the human trainer's
 (``train_human.run_training``).
 
+``--decode-cache G`` caches the datasets' decoded frames, G GB for the
+run, shared by the loader workers (``data/util.py::FrameCache``).
+
+``--device-aug`` draws and renders every random view of an iteration on the
+device, inside the steps and their CUDA graphs
+(``engine.AnimalDeviceAugPipeline``, with the JAX package's deviation notes
+in ``ops/device_aug.py``): the target's ``_mt`` set gives its crop and
+annotations (``IdentityAffine`` views), and a source with a raw mode (the
+synthetic sets) gives its decoded frames, whose imgaug chain, flip, crop and
+targets run on the device; ``--decode-cache G`` then also caches those raw
+items in a ``CachedDataset`` of G GB (``data/loader.py``), beside the frame
+arena of the other sets. A source without a raw mode stays on the host, and
+only the adapt phase builds its target views on the device, as in JAX.
+
 Not ported yet, and refused at start with the ROADMAP item that brings
-them: ``--device-aug`` for the animal datasets (A9's animal half) and the
-``--dist-*`` multi-process flags (A12). ``--decode-cache G`` caches the
-datasets' decoded frames, G GB for the run, shared by the loader workers
-(``data/util.py::FrameCache``).
+them: the ``--dist-*`` multi-process flags (A12).
 """
 
 from __future__ import annotations
@@ -35,10 +46,12 @@ from torch.utils.data import DataLoader, Dataset
 from . import data as datasets
 from .data import ForeverDataIterator, make_loader
 from .data import transforms as T
-from .data.util import FrameArena
+from .data.loader import CachedDataset
+from .data.util import FLIP_PAIRS, FrameArena
 from .device import resolve_device
-from .engine import run_validate
+from .engine import AnimalDeviceAugPipeline, run_validate
 from . import train_human
+from .ops.device_aug import AnimalSourceAugConfig, DeviceAugConfig, flip_perm_from_pairs
 from .train_human import ARCHITECTURES, Validation, run_training, seed_host_streams
 from .utils import CompleteLogger
 
@@ -49,16 +62,6 @@ cv2.setNumThreads(1)  # the loader workers' augmentation, one thread each
 RECOVER_MIN = (-0.3999, -0.3909, -0.3871)
 RECOVER_MAX = (0.6001, 0.6091, 0.6129)
 ANIMAL_MEAN = [0.3999, 0.3909, 0.3871]
-
-
-def check_ported(args):
-    """Raise for a flag whose machinery the port does not have yet: the
-    human trainer's, and ``--device-aug`` for the animal datasets."""
-    if args.device_aug:
-        raise NotImplementedError(
-            "--device-aug (animal datasets) is not ported to uda_poseestimation_torch yet "
-            "(ROADMAP.md A9, animal half)")
-    train_human.check_ported(args)
 
 
 class Data(NamedTuple):
@@ -72,22 +75,34 @@ class Data(NamedTuple):
     category_loaders: tuple
 
 
+def source_on_device(args, train_source_dataset) -> bool:
+    """Whether the source's views are built on the device: under
+    ``--device-aug``, for a source set with a raw mode."""
+    return bool(args.device_aug and getattr(train_source_dataset, "raw_mode", False))
+
+
 def build_data(args, pin: bool, eval_categories) -> Data:
     """The datasets of ``--source``, ``--target_ssl`` and ``--target`` and
     one evaluation set per category, and their loaders, built in the JAX
     trainer's order with its keywords (``**vars(args)``) and the run's
     ``frame_arena``; ``args.animal`` is left at the last category. ``pin``
-    page-locks the batches (a CUDA run)."""
-    tgt_train_transform_stu = T.Compose([
-        T.RandomAffineRotation(args.rotation_stu, args.shear_stu,
-                               args.translate_stu, args.scale_stu),
-        T.ToTensor(),
-    ])
-    tgt_train_transform_tea = T.Compose([
-        T.RandomAffineRotation(args.rotation_tea, args.shear_tea,
-                               args.translate_tea, args.scale_tea),
-        T.ToTensor(),
-    ])
+    page-locks the batches (a CUDA run). Under ``--device-aug`` the target's
+    views are identity ones and a raw source's items go through a
+    ``CachedDataset`` of ``--decode-cache`` GB (when it is above 0)."""
+    if args.device_aug:  # the views are drawn on the device
+        tgt_train_transform_stu = T.Compose([T.IdentityAffine(), T.ToTensor()])
+        tgt_train_transform_tea = T.Compose([T.IdentityAffine(), T.ToTensor()])
+    else:
+        tgt_train_transform_stu = T.Compose([
+            T.RandomAffineRotation(args.rotation_stu, args.shear_stu,
+                                   args.translate_stu, args.scale_stu),
+            T.ToTensor(),
+        ])
+        tgt_train_transform_tea = T.Compose([
+            T.RandomAffineRotation(args.rotation_tea, args.shear_tea,
+                                   args.translate_tea, args.scale_tea),
+            T.ToTensor(),
+        ])
 
     # --decode-cache: one budget for the frames of every dataset of the run
     arena = FrameArena(args.decode_cache * 1e9) if args.decode_cache > 0 else None
@@ -99,7 +114,11 @@ def build_data(args, pin: bool, eval_categories) -> Data:
         return make_loader(ds, args.test_batch, num_workers=args.workers, pin_memory=pin)
 
     train_source_dataset = dataset(args.source, is_train=True, raw_mode=args.device_aug)
-    train_source_loader = make_loader(train_source_dataset, args.batch_size, shuffle=True,
+    source_items = train_source_dataset
+    if args.decode_cache > 0 and source_on_device(args, train_source_dataset):
+        # raw items are decoded frames only, deterministic: memoizable
+        source_items = CachedDataset(train_source_dataset, max_bytes=args.decode_cache * 1e9)
+    train_source_loader = make_loader(source_items, args.batch_size, shuffle=True,
                                       num_workers=args.workers, drop_last=True,
                                       pin_memory=pin)
     val_source_loader = eval_loader(dataset(args.source, is_train=False))
@@ -118,7 +137,7 @@ def build_data(args, pin: bool, eval_categories) -> Data:
 
 
 def main(args: argparse.Namespace, eval_categories=("horse", "tiger")):
-    check_ported(args)
+    train_human.check_ported(args)
     device = resolve_device(args.device)
     logger = CompleteLogger(args.log + "_" + args.arch, args.phase)
     try:
@@ -170,7 +189,37 @@ def _train(args, device, logger, eval_categories):
                  ForeverDataIterator(data.train_target_loader),
                  recover=(RECOVER_MIN, RECOVER_MAX),
                  denormalize=lambda image: image + np.asarray(ANIMAL_MEAN),
-                 validate=validate, report=report)
+                 validate=validate, report=report,
+                 device_aug=device_aug_pipeline(args, data.train_source_dataset, device)
+                 if args.device_aug else None)
+
+
+def device_aug_pipeline(args, train_source_dataset, device) -> AnimalDeviceAugPipeline:
+    """``--device-aug``'s pipeline (the JAX trainer's): the student's and
+    the teachers' affine configs from their flags (no crop, no jitter), the
+    target views normalized by ``ANIMAL_MEAN``; with a raw source, its
+    ``AnimalSourceAugConfig`` from ``--inp-res``, ``--out-res``, ``--sigma``
+    and ``--label-type``, the pair swap of its ``FLIP_DATASET`` and its own
+    mean; draws seeded from ``--seed``."""
+    common = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
+                  sigma=args.sigma, use_rrc=False, color=0.0)
+    aug_stu = DeviceAugConfig(rotation=args.rotation_stu, shear=tuple(args.shear_stu),
+                              translate=tuple(args.translate_stu),
+                              scale=tuple(args.scale_stu), **common)
+    aug_tea = DeviceAugConfig(rotation=args.rotation_tea, shear=tuple(args.shear_tea),
+                              translate=tuple(args.translate_tea),
+                              scale=tuple(args.scale_tea), **common)
+    src = {}
+    if source_on_device(args, train_source_dataset):
+        src = dict(src_cfg=AnimalSourceAugConfig(inp_res=args.inp_res, out_res=args.out_res,
+                                                 sigma=args.sigma, label_type=args.label_type),
+                   flip_perm=flip_perm_from_pairs(FLIP_PAIRS[train_source_dataset.FLIP_DATASET],
+                                                  train_source_dataset.num_keypoints),
+                   src_mean=train_source_dataset.mean)
+    return AnimalDeviceAugPipeline(aug_stu, aug_tea, k=args.k, mean=ANIMAL_MEAN,
+                                   label_type=args.label_type,
+                                   seed=args.seed if args.seed is not None else 0,
+                                   device=device, **src)
 
 
 def build_parser():
@@ -280,10 +329,9 @@ def build_parser():
     parser.add_argument("--occlude-rate", type=float, default=0.5)
     parser.add_argument("--occlude-thresh", type=float, default=0.9, help="")
     parser.add_argument("--occlude-size", type=int, default=10, help="")
-    # accepted for command-line parity; check_ported refuses what is not ported
     parser.add_argument("--device-aug", action="store_true",
-                        help="generate the views on the device (not ported for the "
-                             "animal datasets: ROADMAP A9, animal half)")
+                        help="generate the views on the device (the host only decodes "
+                             "the source's frames and crops the target's)")
     parser.add_argument("--decode-cache", type=float, default=0.0,
                         help="GB of decoded-frame cache of the animal datasets, shared "
                              "by the loader workers; 0 disables")

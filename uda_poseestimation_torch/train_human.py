@@ -304,7 +304,9 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
     ``--debug``'s images; ``validate(eval_step, model, visualize)`` returns
     a ``Validation``; ``report(epoch, validation, best)`` writes its lines
     (``epoch`` None for ``--phase test``); ``device_aug`` is a
-    ``DeviceAugPipeline`` (``--device-aug``)."""
+    ``DeviceAugPipeline`` or an ``AnimalDeviceAugPipeline``
+    (``--device-aug``), whose views the pretrain phase takes only when its
+    ``source_on_device``."""
     cfg = StepConfig(image_size=args.image_size, heatmap_size=args.heatmap_size,
                      sigma=args.sigma, k=args.k, lambda_c=args.lambda_c,
                      teacher_alpha=args.teacher_alpha, mask_ratio=args.mask_ratio,
@@ -323,10 +325,13 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
         style_model = load_style_net_files(StyleNet(), VGG_PATH, args.decoder_name)
         style_model.to(device=device, dtype=torch.bfloat16)  # frozen: bf16 storage
 
-    views = {"adapt": None, "pretrain": None}
-    if device_aug is not None:
-        views = {"adapt": device_aug.view_builder,
-                 "pretrain": device_aug.pretrain_view_builder(style_model is not None)}
+    # the pretrain phase takes raw batches only where the source's views are
+    # built on the device (not so for an animal source without a raw mode)
+    pretrain_aug = device_aug if device_aug is not None and device_aug.source_on_device \
+        else None
+    views = {"adapt": None if device_aug is None else device_aug.view_builder,
+             "pretrain": None if pretrain_aug is None
+             else pretrain_aug.pretrain_view_builder(style_model is not None)}
 
     # the unbundled pretrain loop builds its views itself (as JAX's does)
     pretrain_step = make_pretrain_step(cfg, style_model=style_model, device=device)
@@ -378,7 +383,7 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
                 state, pretrain_step, train_source_iter, train_target_iter, epoch, lr,
                 args, visualize if args.debug else None,
                 style_enabled=style_model is not None, bundler=bundlers.get("pretrain"),
-                device_aug=device_aug)
+                device_aug=pretrain_aug)
         else:
             if epoch == args.pretrain_epoch:
                 restore(load_checkpoint(logger.get_checkpoint_path("best_pt")),
