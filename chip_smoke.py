@@ -130,15 +130,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             synthetic-animal, TigDog and AnimalPose trees that the phase
             writes (ANIMAL_TREES): the train_animal line adapting (3
             iterations), pretraining, bundled with --steps-per-dispatch 4
-            (4 iterations), and with a decoder that the AdaIN animal CLI
-            (uda_poseestimation_torch.adain.train_animal) trains for 40
-            iterations first and --decode-cache 1, over 6 iterations;
+            (20 iterations on trees of 20 batches a pass,
+            ANIMAL_LONG_TREES), and with a decoder that the AdaIN animal
+            CLI (uda_poseestimation_torch.adain.train_animal) trains for
+            40 iterations first and --decode-cache 1, over 6 iterations;
             the train_animal_other line adapting; and with --device-aug:
-            adapting (3 iterations), pretraining bundled (4), and
-            adapting bundled with --decode-cache 1 over two passes of the
-            synthetic set rounded up to whole bundles (8); and a steady pair,
-            24 adapt iterations with host views and with --device-aug on
-            trees of 20 batches a pass (ANIMAL_LONG_TREES). occlusion_warp
+            adapting (3 iterations), pretraining bundled (4), adapting
+            bundled with --decode-cache 1 over two passes of the
+            synthetic set rounded up to whole bundles (8), adapting
+            bundled on ANIMAL_LONG_TREES (20), and the
+            train_animal_other line adapting (3). occlusion_warp
             once an adapt iteration, eager or replayed, never in
             pretraining or the AdaIN CLI; finite epoch lines with both
             category parts, the AdaIN run's 2 PNGs and checkpoint, no worker
@@ -1557,11 +1558,11 @@ def phase_bundled(device, work_dir, profile_dir=None):
     return launches_by_path
 
 
-# the fake RHD tree of phase device_aug's CLI runs: 20 batches a pass, so
-# that 40 iterations read each training set twice and the second pass shows
+# the fake RHD tree of phase device_aug's CLI runs: 10 batches a pass, so
+# that 20 iterations read each training set twice and the second pass shows
 # the decoded-canvas cache
-DA_FRAMES = 20 * MAIN_B
-DA_ITERS = 40
+DA_FRAMES = 10 * MAIN_B
+DA_ITERS = 20
 # phase device_aug's CLI runs: (name, workers (None: min(8, cpus)), flags)
 DA_CLI_RUNS = (
     ("device_aug_j8", None, ["--device-aug", "--decode-cache", "1"]),
@@ -2378,7 +2379,7 @@ FAKE_TREES = {
     "freihand": {"index": 32560, "versions": 4, "frame": 224, "distinct_frames": 16},
     "h36m": {"per_part": 1000, "parts": (1, 5, 6, 7, 8, 9, 11), "crop": 512,
              "distinct_frames": 32},
-    "surreal": {"train": 2400, "val": 240, "test": 16200, "frame": 240,
+    "surreal": {"train": 2400, "val": 240, "test": 4000, "frame": 240,
                 "distinct_frames": 32},
     "lsp": {"images": 2000, "height": (140, 260), "width": (100, 260),
             "distinct_frames": 32},
@@ -2473,8 +2474,9 @@ def write_fake_h36m(root):
 def write_fake_surreal(root):
     """The processed SURREAL layout: ``train/run{0,1,2}``, ``val`` and
     ``test``, each with ``run{0,1,2}.json`` over 240² frames (24 SMPL joints
-    a sample, 3-6 m from the camera); the test directory large enough that
-    its split reaches the 3200-sample cap."""
+    a sample, 3-6 m from the camera); the test directory of 4000 samples,
+    so that its split is 800 of the 3200 it holds at full size (a cut of
+    scale for the script's time limit)."""
     import numpy as np
 
     cfg = FAKE_TREES["surreal"]
@@ -3021,8 +3023,10 @@ ANIMAL_TREES = {
     "animal_pose": {"animals": ("dog", "sheep"), "train": 40, "test": 16, "frame": (375, 500),
                     "distinct_frames": 16},
 }
-# the steady runs' trees: the same frames and layouts with 20 training
-# batches of 32 a pass, so that 24 iterations cross one pass boundary
+# the bundled adapt runs' trees: the same frames and layouts with 20
+# training batches of 32 a pass, so that 20 iterations read one whole pass
+# and wait for no new one (the steady rate after the first bundle's
+# warm-ups and captures)
 ANIMAL_LONG_TREES = {"synthetic": dict(ANIMAL_TREES["synthetic"], train=320),
                      "tigdog": dict(ANIMAL_TREES["tigdog"], shots=45, train=320)}
 ANIMAL_MEAN_STD = ([0.3999, 0.3909, 0.3871], [0.2589, 0.2431, 0.2291])
@@ -3380,7 +3384,8 @@ ANIMAL_RUNS = (
     ("pretrain", "train_animal.py", ["--pretrain-epoch", "1", "-i", "3"], 0),
     ("other_adapt", "train_animal_other.py", ["--pretrain-epoch", "-1", "-i", "3"], 3),
     ("adapt_bundled", "train_animal.py",
-     ["--pretrain-epoch", "-1", "--steps-per-dispatch", "4", "-i", "4"], 4),
+     ["--pretrain-epoch", "-1", "--steps-per-dispatch", "4", "-i", "20", "--image-path",
+      "{long_tree}"], 20),
     ("adain", None, [], 0),
     ("adapt_trained_decoder_decode_cache", "train_animal.py",
      ["--pretrain-epoch", "-1", "-i", "{two_passes}", "--decoder-name", "{decoder}",
@@ -3392,15 +3397,17 @@ ANIMAL_RUNS = (
     ("adapt_device_aug_bundled_decode_cache", "train_animal.py",
      ["--pretrain-epoch", "-1", "-i", "{two_passes_bundled}", "--device-aug",
       "--steps-per-dispatch", "4", "--decode-cache", "1"], "{two_passes_bundled}"),
-    ("steady_adapt", "train_animal.py",
-     ["--pretrain-epoch", "-1", "-i", "24", "--image-path", "{long_tree}"], 24),
-    ("steady_adapt_device_aug", "train_animal.py",
-     ["--pretrain-epoch", "-1", "-i", "24", "--image-path", "{long_tree}", "--device-aug"], 24),
+    ("adapt_device_aug_bundled", "train_animal.py",
+     ["--pretrain-epoch", "-1", "--steps-per-dispatch", "4", "-i", "20", "--image-path",
+      "{long_tree}", "--device-aug"], 20),
+    ("other_adapt_device_aug", "train_animal_other.py",
+     ["--pretrain-epoch", "-1", "-i", "3", "--device-aug"], 3),
 )
 # the host-path run each --device-aug run is read beside
 ANIMAL_HOST_TWIN = {"adapt_device_aug": "adapt", "pretrain_device_aug_bundled": "pretrain",
                     "adapt_device_aug_bundled_decode_cache": "adapt_trained_decoder_decode_cache",
-                    "steady_adapt_device_aug": "steady_adapt"}
+                    "adapt_device_aug_bundled": "adapt_bundled",
+                    "other_adapt_device_aug": "other_adapt"}
 ANIMAL_DECODER_ITERS = 40
 
 
@@ -3448,23 +3455,24 @@ def phase_trainer_animals(device, work_dir):
     ``write_fake_animal_pose``) with random style weights, pose_resnet101
     b=32 at 256²/64², -j as in trainer_cli, one epoch (ANIMAL_RUNS): the
     train_animal line adapting, pretraining, bundled (--steps-per-dispatch
-    4), and with the decoder that the AdaIN animal CLI trains here for
-    ANIMAL_DECODER_ITERS iterations and --decode-cache 1, over two passes
-    of the synthetic training set (6 iterations at b=32; the TigDog set's
-    third); the train_animal_other line adapting. Each run's launches (occlusion_warp once an adapt iteration,
-    none in pretraining or the AdaIN CLI), finite epoch lines with their two
-    category parts, the AdaIN CLI's two PNGs and checkpoint, and no worker
-    left are required; each run prints its wall time, dataset construction
-    time (build_data), first-batch wait, the median Time and Data of the
-    iterations after the first, each validation's seconds and items, the
-    parent's RSS, and for --decode-cache the frame caches' counts. Returns
-    the launches of each run. The --device-aug runs follow, each
-    read beside its host-path twin (ANIMAL_HOST_TWIN), the last pair over
-    24 iterations on trees of 20 batches a pass (ANIMAL_LONG_TREES: the
-    other trees' passes of 2-3 batches make every few iterations wait for
-    a new pass); before the runs, ``animal_item_ms`` times each training
-    set's items on the host and ``animal_views_on_card`` checks and times
-    the animal view builder."""
+    4, 20 iterations on ANIMAL_LONG_TREES: the other trees' passes of 2-3
+    batches make every few iterations wait for a new pass), and with the
+    decoder that the AdaIN animal CLI trains here for ANIMAL_DECODER_ITERS
+    iterations and --decode-cache 1, over two passes of the synthetic
+    training set (6 iterations at b=32; the TigDog set's third); the
+    train_animal_other line adapting. Each run's launches (occlusion_warp
+    once an adapt iteration, none in pretraining or the AdaIN CLI), finite
+    epoch lines with their two category parts, the AdaIN CLI's two PNGs and
+    checkpoint, and no worker left are required; each run prints its wall
+    time, dataset construction time (build_data), first-batch wait, the
+    median Time and Data of the iterations after the first, the mean Time
+    of those after the first dispatch (a bundled run prints one Time a
+    bundle, so its mean is the rate), each validation's seconds and items,
+    the parent's RSS, and for --decode-cache the frame caches' counts.
+    Returns the launches of each run. The --device-aug runs follow, each
+    read beside its host-path twin (ANIMAL_HOST_TWIN); before the runs,
+    ``animal_item_ms`` times each training set's items on the host and
+    ``animal_views_on_card`` checks and times the animal view builder."""
     import multiprocessing
 
     import torch
@@ -3591,6 +3599,9 @@ def phase_trainer_animals(device, work_dir):
                        "construct_s": record["construct_s"],
                        "first_batch_s": times["first_batch_s"],
                        "time_s_median_after_first": statistics.median(times["time_s_each"][1:]),
+                       "time_s_mean_after_first_dispatch": (
+                           statistics.fmean(after) if (after := times["time_s_each"][
+                               max(1, args.steps_per_dispatch or 1):]) else None),
                        "data_s_median_after_first": statistics.median(times["data_s_each"][1:]),
                        "validation_source": source_val, "validation_target": target_val,
                        "validation_categories": dict(zip(categories, category_vals)),
@@ -3640,6 +3651,7 @@ def phase_trainer_animals(device, work_dir):
         else:
             os.environ["UDA_CACHED_DATA_DIR"] = cache_env
     keys = ("wall_s", "first_batch_s", "time_s_median_after_first",
+            "time_s_mean_after_first_dispatch",
             "data_s_median_after_first", "decode_cache")
     emit({"phase": "trainer_animals", "device_aug_beside_host": {
         name: {"device_aug": {k: runs[name].get(k) for k in keys},

@@ -303,10 +303,9 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
     With ``src_cfg`` the synthetic source's raw set (``raw_mode``) gives its
     decoded uint8 frames with their keypoints, centers and scales, and its
     imgaug chain, flip, crop and targets run on the device too
-    (``animal_source_views``, with ``flip_perm``, ``src_mean`` and
-    ``src_is_aug``); without, the source's host batch passes through (its
-    ``image_s``, ``target_s`` and ``weight_s``) and only the adapt phase
-    takes raw batches.
+    (``animal_source_views``, with ``flip_perm`` and ``src_mean``); without,
+    the source's host batch passes through (its ``image_s``, ``target_s`` and
+    ``weight_s``) and only the adapt phase takes raw batches.
 
     ``view_builder`` makes the adapt step's batch inside the step;
     ``pretrain_view_builder`` the pretrain step's, whose style image is the
@@ -321,19 +320,16 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
 
     host_visualizable = False
 
-    def __init__(self, cfg_stu, cfg_tea, k: int, mean, label_type: str = "Gaussian",
-                 seed: int = 0, device: DeviceLike = None, src_cfg=None, flip_perm=None,
-                 src_mean=None, src_is_aug: bool = True):
+    def __init__(self, cfg_stu, cfg_tea, k: int, mean, seed: int = 0,
+                 device: DeviceLike = None, src_cfg=None, flip_perm=None, src_mean=None):
         super().__init__(seed, device)
         self.cfg_stu, self.cfg_tea, self.k = cfg_stu, cfg_tea, k
         self.mean = tuple(float(v) for v in mean)
-        self.label_type = label_type
         self.src_cfg = src_cfg
         self.source_on_device = src_cfg is not None
         self.flip_perm = (None if flip_perm is None else
                           torch.as_tensor(np.asarray(flip_perm, np.int64)).to(self.device))
         self.src_mean = None if src_mean is None else tuple(float(v) for v in src_mean)
-        self.src_is_aug = src_is_aug
 
     def draw_target(self, b: int, generator=None) -> dict:
         g, size = self._gen(generator), self.cfg_stu.image_size
@@ -348,7 +344,7 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
         if draws is None:
             draws = self.draw_source(canvas.shape[0], generator)
         out = animal_source_views(canvas, pts, center, scale, self.flip_perm, self.src_cfg,
-                                  draws, mean=self.src_mean, is_aug=self.src_is_aug)
+                                  draws, mean=self.src_mean)
         return out["image"], out["target"], out["target_weight"], out["keypoint2d"]
 
     def prep_target(self, canvas, kp, vis, center, scale, generator=None, draws=None):
@@ -358,7 +354,7 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
         if draws is None:
             draws = self.draw_target(c.shape[0], generator)
         stu, tea = (animal_views(c, kp, vis, center, scale, cfg, draws[name], self.mean,
-                                 self.label_type, targets=False)
+                                 targets=False)
                     for cfg, name in ((self.cfg_stu, "student"), (self.cfg_tea, "teacher")))
         return stu["image"][0], stu["aug_param"][0], tea["image"], tea["aug_param"]
 

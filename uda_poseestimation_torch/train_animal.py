@@ -217,7 +217,6 @@ def device_aug_pipeline(args, train_source_dataset, device) -> AnimalDeviceAugPi
                                                   train_source_dataset.num_keypoints),
                    src_mean=train_source_dataset.mean)
     return AnimalDeviceAugPipeline(aug_stu, aug_tea, k=args.k, mean=ANIMAL_MEAN,
-                                   label_type=args.label_type,
                                    seed=args.seed if args.seed is not None else 0,
                                    device=device, **src)
 
