@@ -153,6 +153,20 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             host ms, kernels, bytes copied an iteration on both paths), and
             the adapt and pretrain bundlers' replays with the views built
             inside held against eager steps.
+12. learning  the learning recipe (uda_poseestimation_torch/tools/
+            convergence.py, the twin of tests/test_convergence.py) through
+            the step bundlers, 10 steps a call (CUDA-graph replays,
+            reproducible under deterministic cuDNN,
+            with occlusion_warp inside): a small PoseResNet pretrains on a
+            blob batch, then adapts to a shifted target, without and with
+            style transfer; what the JAX test asserts of each must hold
+            (the student's and the teacher's target PCK rise, finite
+            losses; plain: the pretrain loss falls 3x, train-batch PCK >
+            0.9; style: the decoder's loss falls, all four gate cases
+            run), and occlusion_warp
+            launches once per adapt step, never in pretraining. One line
+            per recipe: PCKs, steps, captures and replays, launches,
+            seconds.
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -2167,51 +2181,23 @@ def blob_frame(rng, h, w, kp):
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
-def write_fake_rhd(root, n_train=96, n_eval=16, size=320):
-    """A fake RHD tree in the layout and recipe of
-    ``tools/make_fixtures.py::make_rhd`` (a copy: this script imports nothing
-    of ``tools/``): 21 Gaussian blobs per frame over a noisy background, the
-    left hand's keypoints visible, the right hand's far away and invisible."""
-    import pickle
+def write_fake_rhd(root):
+    """A fake RHD tree (``tools/fixtures.py::make_rhd``: 96 training and 16
+    evaluation frames of 21 blobs at 320²)."""
+    from uda_poseestimation_torch.tools.fixtures import make_rhd
 
-    import numpy as np
-    from PIL import Image
-
-    base = os.path.join(root, "RHD_published_v2")
-    for set_name, n, seed in (("training", n_train, 0), ("evaluation", n_eval, 1)):
-        color = os.path.join(base, set_name, "color")
-        os.makedirs(color, exist_ok=True)
-        os.makedirs(os.path.join(base, set_name, "mask"), exist_ok=True)
-        rng = np.random.RandomState(seed)
-        anno = {}
-        for i in range(n):
-            kp = rng.uniform(60, size - 60, (21, 2)).astype(np.float32)
-            Image.fromarray(blob_frame(rng, size, size, kp)).save(
-                os.path.join(color, "%.5d.png" % i))
-            uv = np.zeros((42, 3))
-            uv[:21, :2], uv[:21, 2], uv[21:, :2] = kp, 1, 5.0
-            anno[i] = {"uv_vis": uv, "xyz": rng.rand(42, 3) + 1.0,
-                       "K": np.array([[320.0, 0, 160], [0, 320.0, 160], [0, 0, 1]])}
-        with open(os.path.join(base, set_name, "anno_%s.pickle" % set_name), "wb") as f:
-            pickle.dump(anno, f)
+    make_rhd(root)
 
 
 def write_style_weights(work_dir):
-    """Random style weights in the reference's files under
+    """Random style weights (``tools/fixtures.py::STYLE_SEED``) in the reference's files under
     ``work_dir/saved_models``, as ``--decoder-name saved_models/decoder_rand.pth``
     reads them (once per directory)."""
-    import torch
-
-    from uda_poseestimation_torch.models import StyleNet
+    from uda_poseestimation_torch.tools.fixtures import make_style_weights
 
     out = os.path.join(work_dir, "saved_models")
-    if os.path.isdir(out):
-        return
-    style = StyleNet()
-    style.reset_parameters(torch.Generator().manual_seed(1))
-    os.makedirs(out)
-    torch.save(style.encoder.state_dict(), os.path.join(out, "vgg_normalised.pth"))
-    torch.save(style.decoder.state_dict(), os.path.join(out, "decoder_rand.pth"))
+    if not os.path.isdir(out):
+        make_style_weights(out)
 
 
 def lengthen_fake_rhd(root, n):
@@ -3664,6 +3650,65 @@ def phase_trainer_animals(device, work_dir):
     return launches
 
 
+def phase_learning(device):
+    """The learning recipe (``uda_poseestimation_torch/tools/convergence.py``,
+    the twin of ``tests/test_convergence.py``) on the card through the step
+    bundlers, ``convergence.STEPS_PER_DISPATCH`` steps a call, under
+    deterministic cuDNN (``_deterministic``), so that its steps are
+    reproducible CUDA-graph replays
+    with the occlusion warp inside: ``pretrain_until`` then ``adapt``, and
+    ``pretrain_until`` then ``adapt_with_style`` (its decoder trained first,
+    both gates drawn at p=0.5). Holds what the JAX test asserts of each
+    (``convergence.threshold_checks``): the student's and the teacher's
+    target PCK above min(before + 0.1, 0.9) and finite losses; of the plain
+    recipe also the final pretrain loss under a third of the first and
+    train-batch PCK above 0.9, of the style recipe the decoder's loss lower
+    after its steps and all four gate cases run; occlusion_warp once per
+    adapt step (eager or replayed), never in pretraining, the decoder's
+    steps or evaluation.
+    Each pretraining and each adaptation is counted on its own; one line
+    per recipe. Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.tools import convergence as cv
+
+    t0 = time.perf_counter()
+    none = dict.fromkeys(_counters(), 0)
+    launches = {}
+    for name, seed, alpha, adapt in (("learning", 0, 0.9, cv.adapt),
+                                     ("learning_style", 1, 0.85, cv.adapt_with_style)):
+        t = time.perf_counter()
+        rng = np.random.RandomState(seed)
+        cfg, state = cv.make_state(alpha, device)
+        src = cv.make_blob_batch(rng)
+        with _deterministic():
+            _reset_counts()
+            pre = cv.pretrain_until(state, cfg, src, device, cv.STEPS_PER_DISPATCH)
+            launches[f"{name}_pretrain"] = _read_counts()
+            tgt = cv.make_blob_batch(rng, shift=True, kp=src[1])
+            _reset_counts()
+            out = adapt(state, cfg, src, tgt, rng, device, cv.STEPS_PER_DISPATCH)
+            launches[f"{name}_adapt"] = _read_counts()
+        checks = dict(cv.threshold_checks(pre, out),
+                      pretrain_launches=launches[f"{name}_pretrain"] == none,
+                      adapt_launches=launches[f"{name}_adapt"] == dict(
+                          none, occlusion_warp=out["steps"]))
+        emit({"phase": "learning", "recipe": name,
+              "steps_per_dispatch": cv.STEPS_PER_DISPATCH,
+              "pretrain": pre, "adapt": out, "launches": {
+                  k: launches[k] for k in (f"{name}_pretrain", f"{name}_adapt")},
+              "checks": checks, "seconds": time.perf_counter() - t})
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"phase learning, {name}: {failed}")
+        del state
+        gc.collect()
+    emit({"phase": "learning", "card": torch.cuda.get_device_name(device),
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3747,6 +3792,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         animal_launches = timed("trainer_animals", phase_trainer_animals, device, work_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    learning_launches = timed("learning", phase_learning, device)
     emit({"phase_seconds": seconds})
     # each row's launches are those of the path it lies on (warp_gather: none),
     # in all and in the last measured adapt step; then every path's own count
@@ -3757,7 +3805,8 @@ def main(argv=None) -> int:
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()},
                **decoder_launches,
-               **{f"trainer_animals_{k}": v for k, v in animal_launches.items()}}
+               **{f"trainer_animals_{k}": v for k, v in animal_launches.items()},
+               **learning_launches}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):
         rows[name]["launches"] = run["launches"][name]

@@ -162,7 +162,10 @@ class ResNet(nn.Module):
 
     @property
     def out_features(self) -> int:
-        return 512 * self.block.expansion
+        """Channels of the last stage: 512 * expansion for four stages. The
+        JAX package's Flax deconv infers its input channels, so a backbone
+        of fewer stages (the convergence recipe's three) needs this."""
+        return 64 * 2 ** (self.num_stages - 1) * self.block.expansion
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

@@ -36,8 +36,37 @@ from .resnet import lecun_normal_
 _ENCODER_TAPS = (3, 10, 17, 30)
 
 
+class _ReflectPad1Fn(torch.autograd.Function):
+    """``F.pad(x, (1, 1, 1, 1), mode="reflect")`` with a backward that folds
+    each border column, then each border row, onto the one it mirrors by
+    plain slice additions. ReflectionPad2d's CUDA backward adds with
+    atomics, whose order varies, so that the decoder trained from one seed
+    differed from run to run."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        g_w = g[..., 1:-1].clone()
+        g_w[..., 1] += g[..., 0]
+        g_w[..., -2] += g[..., -1]
+        g_hw = g_w[..., 1:-1, :].clone()
+        g_hw[..., 1, :] += g_w[..., 0, :]
+        g_hw[..., -2, :] += g_w[..., -1, :]
+        return g_hw
+
+
+class ReflectionPad1(nn.Module):
+    """``nn.ReflectionPad2d(1)`` with a deterministic backward."""
+
+    def forward(self, x):
+        return _ReflectPad1Fn.apply(x)
+
+
 def _conv_block(cin: int, cout: int, relu: bool = True):
-    layers = [nn.ReflectionPad2d(1), nn.Conv2d(cin, cout, 3)]
+    layers = [ReflectionPad1(), nn.Conv2d(cin, cout, 3)]
     return layers + [nn.ReLU()] if relu else layers
 
 
