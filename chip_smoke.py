@@ -94,7 +94,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             pose_resnet101 b=32, 3 iterations an epoch, -j min(8, cpus): a
             pretrain epoch, an adapt epoch, the adapt epoch under
             UDA_BN_FUSE=1 (630 matmul_stats launches, all tma), a pretrain
-            and an adapt epoch with --steps-per-dispatch 4, --phase
+            and an adapt epoch with --steps-per-dispatch 4 (the two adapt
+            epochs without UDA_BN_FUSE under deterministic cuDNN, for phase
+            distributed, which holds its launcher runs to their printed
+            losses), --phase
             test --resume on phase 7's checkpoint, and a 40-iteration adapt
             epoch on the tree lengthened to 40 batches (hard links), long
             enough to drain the workers' prefetched batches; the
@@ -133,7 +136,7 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             (20 iterations on trees of 20 batches a pass,
             ANIMAL_LONG_TREES), and with a decoder that the AdaIN animal
             CLI (uda_poseestimation_torch.adain.train_animal) trains for
-            40 iterations first and --decode-cache 1, over 6 iterations;
+            20 iterations first and --decode-cache 1, over 6 iterations;
             the train_animal_other line adapting; and with --device-aug:
             adapting (3 iterations), pretraining bundled (4), adapting
             bundled with --decode-cache 1 over two passes of the
@@ -153,6 +156,28 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             host ms, kernels, bytes copied an iteration on both paths), and
             the adapt and pretrain bundlers' replays with the views built
             inside held against eager steps.
+11b. distributed  --dist-* (phase_distributed): (a) the train_human CLI
+            through the port's launcher at -n 1 (one NCCL rank): phase
+            trainer_cli's two adapt epochs of 3 iterations, unbundled and
+            with --steps-per-dispatch 4 (the collectives captured in the
+            graphs), on a fresh copy of its tree, their printed losses
+            equal to that phase's (which runs them under deterministic
+            cuDNN without --dist-*); (b) meanwhile, two spawned ranks
+            sharing the card over gloo, 16 rows each of one float32 adapt
+            step at full width (pose_resnet101, 256², b=32, style and
+            occlusion on, given draws) against the one-process step on the
+            whole batch (the teacher mask and the occlusion decisions
+            equal, the argmax targets' differences counted; losses,
+            BatchNorm statistics and the parameter changes within stated
+            tolerances, the latter a floor measured from a perturbation that
+            keeps every decision; both ranks' states bit-equal,
+            occlusion_warp once a rank), the model's BatchNorm in float64 at
+            two main-path shapes
+            against one process within 1e-10, and each rank's ms of the
+            gradient and BatchNorm all-reduces over gloo; (c) ms per adapt
+            step of phase main's path with no group and in a one-process
+            NCCL group, in turns, unbundled and bundled, and the NCCL
+            gradient all-reduce's ms.
 12. learning  the learning recipe (uda_poseestimation_torch/tools/
             convergence.py, the twin of tests/test_convergence.py) through
             the step bundlers, 10 steps a call (CUDA-graph replays,
@@ -1572,11 +1597,11 @@ def phase_bundled(device, work_dir, profile_dir=None):
     return launches_by_path
 
 
-# the fake RHD tree of phase device_aug's CLI runs: 10 batches a pass, so
-# that 20 iterations read each training set twice and the second pass shows
-# the decoded-canvas cache
-DA_FRAMES = 10 * MAIN_B
-DA_ITERS = 20
+# the fake RHD tree of phase device_aug's CLI runs: 5 batches a pass, so
+# that 10 iterations read each training set twice and the second pass shows
+# the decoded-canvas cache (sized for the script's time limit)
+DA_FRAMES = 5 * MAIN_B
+DA_ITERS = 10
 # phase device_aug's CLI runs: (name, workers (None: min(8, cpus)), flags)
 DA_CLI_RUNS = (
     ("device_aug_j8", None, ["--device-aug", "--decode-cache", "1"]),
@@ -2246,6 +2271,26 @@ def usable_fake_rhd(root, n):
         pickle.dump(out, f)
 
 
+# phase trainer_cli's iterations an epoch, and the adapt runs that phase
+# distributed repeats through the launcher: (name, extra flags)
+CLI_ITERS = 3
+CLI_ADAPT_RUNS = (("adapt", ["--pretrain-epoch", "-1", "--epochs", "1"]),
+                  ("adapt_spd4", ["--pretrain-epoch", "-1", "--epochs", "1",
+                                  "--steps-per-dispatch", str(BUNDLE_N)]))
+
+
+def trainer_cli_args(root, device):
+    """Phase trainer_cli's train_human flags on the fake RHD tree ``root``:
+    full width, random style weights, seed 0, ``-p 1``, -j min(8, cpus)."""
+    return [root, root, "-s", "RenderedHandPose", "-t", "RenderedHandPose",
+            "--target-train", "RenderedHandPose_mt", "-a", TRAINER_ARCH, "-b", str(MAIN_B),
+            "--test-batch", str(MAIN_B), "--image-size", str(MAIN_IMAGE),
+            "--heatmap-size", str(MAIN_HEATMAP), "--k", str(MAIN_KV),
+            "--seed", "0", "-i", str(CLI_ITERS), "-p", "1",
+            "--decoder-name", "saved_models/decoder_rand.pth",
+            "-j", str(min(8, os.cpu_count() or 1)), "--device", str(device)]
+
+
 def phase_trainer_cli(device, work_dir, checkpoint):
     """``train_human.main`` of the port in this process, at full width on a
     fake RHD tree with random style weights (the cwd is ``work_dir`` for the
@@ -2254,8 +2299,11 @@ def phase_trainer_cli(device, work_dir, checkpoint):
     ``--phase test --resume`` on ``checkpoint`` (written by the port's
     save_checkpoint), and a 40-iteration adapt epoch on the tree
     lengthened to 40 batches a pass (the data pipeline's steady cost). Each
-    run is counted on its own. Needs Pillow; returns
-    the launches of each run, or None when Pillow is not installed."""
+    run is counted on its own. The two runs of CLI_ADAPT_RUNS run under
+    deterministic cuDNN (``_deterministic``), so that phase distributed can
+    hold its launcher runs to their printed losses. Needs Pillow; returns
+    the launches of each run and those two runs' printed losses, or (None,
+    None) when Pillow is not installed."""
     import importlib.util
     import multiprocessing
 
@@ -2263,7 +2311,7 @@ def phase_trainer_cli(device, work_dir, checkpoint):
 
     if importlib.util.find_spec("PIL") is None:
         emit({"phase": "trainer_cli", "ran": False, "reason": "Pillow is not installed"})
-        return None
+        return None, None
     from uda_poseestimation_torch import train_human
     from uda_poseestimation_torch.models import resnet
     from uda_poseestimation_torch.ops.bn_fuse import VARIANTS, matmul_stats
@@ -2274,30 +2322,24 @@ def phase_trainer_cli(device, work_dir, checkpoint):
     write_style_weights(work_dir)
     fixture_s = time.perf_counter() - t0
     workers = min(8, os.cpu_count() or 1)
-    common = [root, root, "-s", "RenderedHandPose", "-t", "RenderedHandPose",
-              "--target-train", "RenderedHandPose_mt", "-a", TRAINER_ARCH, "-b", str(MAIN_B),
-              "--test-batch", str(MAIN_B), "--image-size", str(MAIN_IMAGE),
-              "--heatmap-size", str(MAIN_HEATMAP), "--k", str(MAIN_KV),
-              "--seed", "0", "-i", "3", "-p", "1",
-              "--decoder-name", "saved_models/decoder_rand.pth", "-j", str(workers),
-              "--device", str(device)]
+    common = trainer_cli_args(root, device)
     # the fused GEMM's calls per train-mode forward (70 for pose_resnet101):
     # k teacher and 2 student forwards per adapt iteration, 3 iterations
     per_forward = sum(resnet.fused_gemm_shapes(
         getattr(resnet, TRAINER_ARCH[len("pose_"):])(fuse_bn=True), MAIN_B,
         MAIN_IMAGE).values())
     none = dict.fromkeys(_counters(), 0)
+    adapt = dict(CLI_ADAPT_RUNS)
     runs = [("pretrain", ["--pretrain-epoch", "1", "--epochs", "1"], None, none),
-            ("adapt", ["--pretrain-epoch", "-1", "--epochs", "1"], None,
-             dict(none, occlusion_warp=3)),
+            ("adapt", adapt["adapt"], None, dict(none, occlusion_warp=CLI_ITERS)),
             ("adapt_bn_fuse", ["--pretrain-epoch", "-1", "--epochs", "1"], "1",
-             dict(none, occlusion_warp=3, matmul_stats=3 * (MAIN_KV + 2) * per_forward)),
+             dict(none, occlusion_warp=CLI_ITERS,
+                  matmul_stats=CLI_ITERS * (MAIN_KV + 2) * per_forward)),
             # --steps-per-dispatch: the 3 iterations in one bundle, graph
             # replays after each gate case's first (eager) step
             ("pretrain_spd4", ["--pretrain-epoch", "1", "--epochs", "1",
-                               "--steps-per-dispatch", "4"], None, none),
-            ("adapt_spd4", ["--pretrain-epoch", "-1", "--epochs", "1",
-                            "--steps-per-dispatch", "4"], None, dict(none, occlusion_warp=3)),
+                               "--steps-per-dispatch", str(BUNDLE_N)], None, none),
+            ("adapt_spd4", adapt["adapt_spd4"], None, dict(none, occlusion_warp=CLI_ITERS)),
             ("test", ["--phase", "test", "--resume", checkpoint], None, none),
             # long enough to drain the workers' prefetched batches (2 each),
             # on a tree of 40 batches a pass (the loader's next pass would
@@ -2305,7 +2347,7 @@ def phase_trainer_cli(device, work_dir, checkpoint):
             # latency every 3 iterations on the 96-frame tree)
             ("adapt_40", ["--pretrain-epoch", "-1", "--epochs", "1", "-i", "40"], None,
              dict(none, occlusion_warp=40))]
-    results, launches = {}, {}
+    results, launches, losses = {}, {}, {}
     cwd, fuse_env = os.getcwd(), os.environ.get("UDA_BN_FUSE")
     os.chdir(work_dir)
     try:
@@ -2319,7 +2361,8 @@ def phase_trainer_cli(device, work_dir, checkpoint):
             printed = io.StringIO()
             args = train_human.build_parser().parse_args(common + extra + ["--log",
                                                                             f"logs/{name}"])
-            with contextlib.redirect_stdout(printed):
+            cudnn = _deterministic() if name in adapt else contextlib.nullcontext()
+            with contextlib.redirect_stdout(printed), cudnn:
                 _reset_counts()
                 r0 = time.perf_counter()
                 train_human.main(args)
@@ -2345,6 +2388,8 @@ def phase_trainer_cli(device, work_dir, checkpoint):
             results[name] = {"wall_s": wall, "launches": launches[name],
                              "matmul_stats_by_variant": by_variant, "log": lines,
                              **printed_times(printed.getvalue())}
+            if name in adapt:
+                losses[name] = results[name]["losses"] = printed_losses(printed.getvalue())
     finally:
         os.chdir(cwd)
         if fuse_env is None:
@@ -2355,7 +2400,7 @@ def phase_trainer_cli(device, work_dir, checkpoint):
           "cpu_count": os.cpu_count(),
           "fixture": {"train": 96, "eval": 16, "size": 320, "train_adapt_40": 40 * MAIN_B},
           "fixture_s": fixture_s, "runs": results, "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, losses
 
 
 # the fake trees of phase trainer_pairs (PERF.md section 4 states the sizes
@@ -3394,7 +3439,9 @@ ANIMAL_HOST_TWIN = {"adapt_device_aug": "adapt", "pretrain_device_aug_bundled": 
                     "adapt_device_aug_bundled_decode_cache": "adapt_trained_decoder_decode_cache",
                     "adapt_device_aug_bundled": "adapt_bundled",
                     "other_adapt_device_aug": "other_adapt"}
-ANIMAL_DECODER_ITERS = 40
+# the AdaIN animal CLI's iterations (sized for the script's time limit); it
+# logs an image and saves the decoder every half of them
+ANIMAL_DECODER_ITERS = 20
 
 
 def animal_item_ms(image_path, items=16):
@@ -3526,7 +3573,8 @@ def phase_trainer_animals(device, work_dir):
                      "--vgg", "saved_models/vgg_normalised.pth", "--image-size",
                      str(MAIN_IMAGE), "--inp-res", str(MAIN_IMAGE), "--out-res",
                      str(MAIN_HEATMAP), "--max_iter", str(ANIMAL_DECODER_ITERS),
-                     "--save_model_interval", "20", "--log_img_interval", "20",
+                     "--save_model_interval", str(ANIMAL_DECODER_ITERS // 2),
+                     "--log_img_interval", str(ANIMAL_DECODER_ITERS // 2),
                      "--exp_name", "decoder_animal", "--device", str(device)]
                     + _cli_aug_flags_of(animal_script_line("train_animal.py")))
                 with contextlib.redirect_stdout(printed), tf32(True, False):
@@ -3543,7 +3591,8 @@ def phase_trainer_animals(device, work_dir):
                                                       "save_img_decoder_animal")))
                 fill["{decoder}"] = os.path.join(out, "saved_model",
                                                  "decoder_decoder_animal.pth.tar")
-                if (len(lines) != ANIMAL_DECODER_ITERS or pngs != ["0.png", "20.png"]
+                if (len(lines) != ANIMAL_DECODER_ITERS
+                        or pngs != ["0.png", f"{ANIMAL_DECODER_ITERS // 2}.png"]
                         or not os.path.isfile(fill["{decoder}"])
                         or "WARNING" in printed.getvalue()):
                     raise AssertionError(f"AdaIN animal CLI: {len(lines)} lines, PNGs {pngs}, "
@@ -3647,6 +3696,542 @@ def phase_trainer_animals(device, work_dir):
     emit({"phase": "trainer_animals", "workers": workers, "fake_trees": ANIMAL_TREES,
           "long_trees": ANIMAL_LONG_TREES, "fixture_s": fixture_s,
           "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# phase distributed: --dist-* on the card
+
+# part (a): phase trainer_cli's adapt runs (CLI_ADAPT_RUNS) through the
+# launcher at one NCCL rank: (name here, that phase's run)
+DIST_CLI_RUNS = (("unbundled", "adapt"), ("spd4", "adapt_spd4"))
+# part (b): the global batch, split over DIST_RANKS gloo ranks on cuda:0
+DIST_B, DIST_RANKS = MAIN_B, 2
+# part (b): the change that sets the float32 update's floor: (what,
+# relative change), "student" the student's parameters (the teacher keeps
+# its own, so the step's teacher decisions cannot move; checked), "source"
+# the source images (the style path carries them to the teacher)
+DIST_FLOOR = ("student", 1e-6)
+# part (b): the float64 BatchNorm cases, at the shapes of pose_resnet101's
+# stem and last stage on the main path
+DIST_BN_SHAPES = ((DIST_B, 64, MAIN_IMAGE // 2, MAIN_IMAGE // 2),
+                  (DIST_B, 2048, MAIN_IMAGE // 32, MAIN_IMAGE // 32))
+DIST_BN_TOL = 1e-10
+# the step's discrete decisions: the teacher's confidence mask, the
+# occlusion gate and rectangles (held equal between the ranks and one
+# process), and the rectified targets, a Gaussian at each argmax of the
+# teacher's heatmaps (counted there: the float32 BatchNorm statistics over
+# the group differ from one process's by ~1e-5 and move near-ties; held
+# equal under the floor's perturbation)
+DIST_DECISIONS = ("tea_mask", "occlude", "occlusion_rect")
+DIST_TARGETS = "y_t_tea_rect"
+# part (c): timed steps and bundles a turn
+DIST_STEPS, DIST_BUNDLES = 3, 2
+_LOSSES = re.compile(r"Loss \((all|s|c)\) ([-+.\de]+)")
+
+
+def printed_losses(text):
+    """Each printed iteration's losses, {"all": x, "s": x[, "c": x]}."""
+    return [{k: float(v) for k, v in _LOSSES.findall(line)} for line in text.splitlines()
+            if line.startswith("Epoch: [")]
+
+
+def trainer_child():
+    """A trainer process of phase distributed: ``python3 -c "import
+    chip_smoke; chip_smoke.trainer_child()" COUNTS ARGV...`` runs the port's
+    train_human.main on ARGV (the launcher appends its --dist-* flags)
+    with TF32 off under deterministic cuDNN, and writes the kernels'
+    launches and its seconds to COUNTS.rank<id>."""
+    import torch
+
+    from uda_poseestimation_torch import train_human
+
+    counts_path, argv = sys.argv[1], sys.argv[2:]
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    args = train_human.build_parser().parse_args(argv)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _deterministic():
+        train_human.main(args)
+    torch.cuda.synchronize()
+    with open(f"{counts_path}.rank{args.dist_process_id}", "w") as f:
+        json.dump({"launches": _read_counts(), "seconds": time.perf_counter() - t0}, f)
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rows_of(batch, rows):
+    return {k: (v[:, rows] if k in ("images_t_tea", "aug_params_tea") else v[rows])
+            for k, v in batch.items()}
+
+
+def _dist_step_inputs(device, perturb=None):
+    """Part (b)'s state, step and global batch: pose_resnet101 and the
+    StyleNet in float32 from seeds (create_state re-draws the same weights in
+    every process), SGD, every keypoint confident and the occlusion's draws
+    given (about half the samples occluded), both style directions; with
+    ``perturb`` (as DIST_FLOOR) the source images or the student's
+    parameters times 1 + its relative change."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step
+
+    cfg = StepConfig(k=MAIN_KV, use_sgd=True, occlude_thresh=-1.0, aux_outputs=True)
+    state = create_state(pose_resnet101(num_keypoints=MAIN_K), cfg, seed=0, device=device)
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device)
+    rng = np.random.RandomState(7)
+    batch = synthetic_batch(rng, DIST_B, MAIN_KV, MAIN_IMAGE, MAIN_HEATMAP, MAIN_K)
+    what, change = perturb or (None, 0.0)
+    if what == "source":
+        batch["image_s"] = (batch["image_s"] * (1.0 + change)).astype(np.float32)
+    elif what == "student":
+        with torch.no_grad():
+            for v in state.student.parameters():
+                v.mul_(1.0 + change)
+    draws = {"u": rng.rand(DIST_B).astype(np.float32),
+             "gumbel": -np.log(-np.log(rng.rand(DIST_B, MAIN_K))).astype(np.float32),
+             "u1": rng.rand(DIST_B).astype(np.float32),
+             "u2": rng.rand(DIST_B).astype(np.float32)}
+    return state, make_adapt_step(cfg, style_model=style, device=device), batch, draws
+
+
+def _dist_step(device, rows=slice(None), perturb=None):
+    """One part-(b) adapt step on ``rows`` of the global batch; its
+    metrics, discrete decisions and kth value on the host, the student's
+    parameter changes, both models' running statistics and the launches it
+    made."""
+    import torch
+
+    state, step, batch, draws = _dist_step_inputs(device, perturb)
+    before = {k: v.detach().clone() for k, v in state.student.state_dict().items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in _rows_of(batch, rows).items()}
+    draws = {k: torch.from_numpy(v[rows]).to(device) for k, v in draws.items()}
+    _reset_counts()
+    with _deterministic():
+        _, metrics, _ = step(state, batch, 1e-3, do_s2t=True, alpha_s2t=0.7, do_t2s=True,
+                             alpha_t2s=0.3, occlusion_draws=draws)
+    _sync(device)
+    launches = _read_counts()
+    aux = metrics.pop("aux")
+    return {"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "aux": {k: aux[k].cpu() for k in (*DIST_DECISIONS, DIST_TARGETS, "mask_thresh")},
+            "deltas": {k: (v - before[k]).cpu() for k, v in state.student.state_dict().items()
+                       if v.is_floating_point() and "running_" not in k},
+            "stats": {f"{which}.{k}": v.cpu() for which in ("student", "teacher")
+                      for k, v in getattr(state, which).state_dict().items()
+                      if "running_" in k},
+            "launches": launches, "state": state}
+
+
+def _decisions_differ(got, want, rows=slice(None)):
+    """For each of DIST_DECISIONS and DIST_TARGETS, how many entries of
+    ``got`` differ from ``want``'s ``rows``."""
+    out = {}
+    for k in (*DIST_DECISIONS, DIST_TARGETS):
+        a, b = got[k], want[k][rows]
+        out[k] = a.numel() if a.shape != b.shape else int((a != b).sum())
+    return out
+
+
+def _bn_f64(device, shape, rows=slice(None)):
+    """The model's BatchNorm2d in float64 and train mode on ``rows`` of a
+    seeded batch of ``shape`` (the global batch's statistics under a group):
+    its output, running statistics and the gradients of sum(y * dy) with
+    respect to x, the weight and the bias (the latter two summed over the
+    ranks, as the step's gradient average makes them the global batch's)."""
+    import torch
+
+    from uda_poseestimation_torch.models.resnet import BatchNorm2d
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(shape[1])
+    x = torch.randn(shape, generator=gen, dtype=f64) * 3.0 + 1.5
+    dy = torch.randn(shape, generator=gen, dtype=f64)
+    bn = BatchNorm2d(shape[1]).to(device=device, dtype=f64).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(shape[1], generator=gen, dtype=f64) + 0.5)
+        bn.bias.copy_(torch.randn(shape[1], generator=gen, dtype=f64))
+    x = x[rows].to(device).requires_grad_()
+    y = bn(x)
+    (y * dy[rows].to(device)).sum().backward()
+    dweight, dbias = bn.weight.grad, bn.bias.grad
+    if dist.is_active():
+        dist.all_reduce_sum(dweight)
+        dist.all_reduce_sum(dbias)
+    return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "dweight": dweight.cpu(),
+            "dbias": dbias.cpu(), "running_mean": bn.running_mean.cpu(),
+            "running_var": bn.running_var.cpu()}
+
+
+def _flat(tensors):
+    import torch
+
+    return torch.cat([v.reshape(-1) for v in tensors.values()])
+
+
+def _collective_ms(state, device, reps=3):
+    """Host-timed ms of one step's collectives on the group: the flat
+    gradient all-reduce, and the BatchNorm all-reduces of one adapt step
+    (per BN layer: 2C + 1 values in each of the k + 2 train-mode forwards,
+    2C in each of the 2 student backward passes)."""
+    import torch
+
+    from uda_poseestimation_torch.models.resnet import BatchNorm2d
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    grads = [p.grad for p in state.student.parameters() if p.grad is not None]
+    sizes = []
+    for m in state.student.modules():
+        if isinstance(m, BatchNorm2d):
+            c = m.num_features
+            sizes += [2 * c + 1] * (MAIN_KV + 2) + [2 * c] * 2
+    bufs = [torch.zeros(n, device=device) for n in sizes]
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            _sync(device)
+            t = time.perf_counter()
+            fn()
+            _sync(device)
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    return {"grad_all_reduce_ms": timed(lambda: dist.all_reduce_mean_(grads)),
+            "grad_values": sum(g.numel() for g in grads),
+            "bn_all_reduces_ms": timed(lambda: [dist.all_reduce_sum(b) for b in bufs]),
+            "bn_all_reduces": len(bufs)}
+
+
+def _wait_for(path):
+    while not os.path.exists(path):  # the parent writes it meanwhile
+        time.sleep(0.2)
+
+
+def _gloo_rank(rank, work_dir, device_type):
+    """A part-(b) rank: joins the gloo group (on cuda:0 for a CUDA run),
+    runs its rows of the step and the float64 BatchNorm cases, holds them
+    against the one-process references that the parent saves meanwhile,
+    times the collectives once the parent says that the card is otherwise
+    idle (dist_go), and writes its numbers to dist_rank<r>.json."""
+    import hashlib
+
+    import torch
+
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    device = dist.initialize("file://" + os.path.join(work_dir, "dist_rendezvous"),
+                             DIST_RANKS, rank, device=device_type, backend="gloo",
+                             timeout_s=300)
+    try:
+        t0 = time.perf_counter()
+        rows = dist.local_rows(DIST_B)
+        out = _dist_step(device, rows)
+        step_s = time.perf_counter() - t0
+        bn = [_bn_f64(device, shape, rows) for shape in DIST_BN_SHAPES]
+        _wait_for(os.path.join(work_dir, "dist_reference.pt"))
+        ref = torch.load(os.path.join(work_dir, "dist_reference.pt"), weights_only=False)
+        bn_err = {}
+        for shape, got, want in zip(DIST_BN_SHAPES, bn, ref["bn"]):
+            for k, v in got.items():
+                name = f"{'x'.join(map(str, shape))}.{k}"
+                bn_err[name] = _rel_max(v, want[k][rows] if k in ("y", "dx") else want[k])
+        result = {
+            "rank": rank, "launches": out["launches"], "step_s_with_setup": step_s,
+            "decisions_differ": _decisions_differ(out["aux"], ref["aux"], rows),
+            "occluded": int(out["aux"]["occlude"].sum()),
+            "mask_thresh": float(out["aux"]["mask_thresh"]),
+            "mask_thresh_rel_err": _rel_max(out["aux"]["mask_thresh"], ref["aux"]["mask_thresh"]),
+            "loss_rel_err": {k: _rel_max(out["metrics"][k], ref["metrics"][k])
+                             for k in ("loss_all", "loss_s", "loss_c", "acc_s")},
+            "delta_rel_norm_err": max(_rel_norm(v, ref["deltas"][k])
+                                      for k, v in out["deltas"].items()),
+            "delta_rel_norm_err_whole": _rel_norm(_flat(out["deltas"]), _flat(ref["deltas"])),
+            "stats_rel_err": max(_rel_max(v, ref["stats"][k]) for k, v in out["stats"].items()),
+            "bn_f64_rel_err": bn_err,
+            "state_digest": hashlib.sha256(b"".join(
+                v.detach().cpu().numpy().tobytes()
+                for m in (out["state"].student, out["state"].teacher)
+                for v in m.state_dict().values())).hexdigest()}
+        _wait_for(os.path.join(work_dir, "dist_go"))
+        result.update(_collective_ms(out["state"], device))
+        with open(os.path.join(work_dir, f"dist_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.shutdown()
+
+
+def _dist_reference(device, work_dir):
+    """Part (b)'s one-process references, saved to dist_reference.pt for
+    the ranks: the step on the whole batch, the float64 BatchNorm cases,
+    and the float32 update's floor: the parameter changes' distance (in
+    norm) between the step and the same step perturbed by DIST_FLOOR, with
+    how many of its decisions and targets differ (none may). Returns the
+    step's launches and the floor's reading."""
+    import torch
+
+    ref = _dist_step(device)
+    ref.pop("state")
+    ref["bn"] = [_bn_f64(device, shape) for shape in DIST_BN_SHAPES]
+    moved = _dist_step(device, perturb=DIST_FLOOR)
+    floor = {"perturbed": DIST_FLOOR[0], "relative_change": DIST_FLOOR[1],
+             "decisions_differ": _decisions_differ(moved["aux"], ref["aux"]),
+             "delta_rel_norm_whole": _rel_norm(_flat(moved["deltas"]), _flat(ref["deltas"])),
+             "delta_rel_norm_worst": max(_rel_norm(v, ref["deltas"][k])
+                                         for k, v in moved["deltas"].items())}
+    del moved
+    torch.save(ref, os.path.join(work_dir, "dist_reference.part"))
+    os.replace(os.path.join(work_dir, "dist_reference.part"),
+               os.path.join(work_dir, "dist_reference.pt"))
+    return ref["launches"], floor
+
+
+def _nccl_w1_ms(device):
+    """ms per adapt step of phase main's path (bf16, b=32, generator
+    draws), unbundled and through AdaptStepBundler (BUNDLE_N a bundle), in
+    turns with no group, in a one-process NCCL group (the step's
+    collectives run, on one rank), in the group again and with no group
+    again; the bundler's graphs are captured anew in each turn. Also the
+    ms of the gradient all-reduce in the group (CUDA events). Returns the
+    numbers and the launches of each turn; no group is left."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import StyleNet, pose_resnet101
+    from uda_poseestimation_torch.parallel import (AdaptStepBundler, StepConfig, create_state,
+                                                   make_adapt_step)
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    cfg = StepConfig(k=MAIN_KV, gather_exact=False, style_io_dtype="bfloat16")
+    style = StyleNet()
+    style.reset_parameters(torch.Generator().manual_seed(1))
+    style.to(device=device, dtype=torch.bfloat16)
+    host = {k: torch.from_numpy(v).pin_memory()
+            for k, v in synthetic_batch(np.random.RandomState(0), MAIN_B, MAIN_KV, MAIN_IMAGE,
+                                        MAIN_HEATMAP, MAIN_K).items()}
+    gates = dict(do_s2t=True, alpha_s2t=0.5, do_t2s=True, alpha_t2s=0.5)
+    n, steps, bundles = BUNDLE_N, DIST_STEPS, DIST_BUNDLES
+    states = [create_state(pose_resnet101(num_keypoints=MAIN_K, dtype=torch.bfloat16), cfg,
+                           seed=0, device=device) for _ in range(2)]
+    step = make_adapt_step(cfg, style_model=style, device=device)
+    bundler = AdaptStepBundler(cfg, style_model=style, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    runs = {"unbundled": (lambda: step(states[0], host, 1e-4, generator=gen, **gates), steps, 1),
+            "bundled": (lambda: bundler(states[1], [host] * n, 1e-4, [True] * n, [0.5] * n,
+                                        [True] * n, [0.5] * n, generator=gen), bundles, n)}
+    out = {f"{group}_{name}_ms_per_step": [] for group in ("no_group", "nccl_w1")
+           for name in runs}
+    launches = {}
+    for turn, group in enumerate(("no_group", "nccl_w1", "nccl_w1", "no_group")):
+        if group == "nccl_w1":
+            dist.initialize(f"localhost:{dist.free_port()}", 1, 0, device=device)
+        try:
+            bundler.reset()  # graphs captured with or without the collectives
+            for name, (run, calls, per_call) in runs.items():
+                for _ in range(2):  # warm-up: the eager step, the capture
+                    run()
+                torch.cuda.synchronize()
+                _reset_counts()
+                t = time.perf_counter()
+                for _ in range(calls):
+                    run()
+                torch.cuda.synchronize()
+                out[f"{group}_{name}_ms_per_step"].append(
+                    (time.perf_counter() - t) * 1e3 / (calls * per_call))
+                launches[f"{group}_{name}_turn{turn}"] = _read_counts()
+            if group == "nccl_w1" and "nccl_w1_grad_all_reduce_ms" not in out:
+                grads = [p.grad for p in states[0].student.parameters() if p.grad is not None]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                out["nccl_w1_grad_all_reduce_ms"] = []
+                for _ in range(5):
+                    start.record()
+                    dist.all_reduce_mean_(grads)
+                    end.record()
+                    end.synchronize()
+                    out["nccl_w1_grad_all_reduce_ms"].append(start.elapsed_time(end))
+        finally:
+            dist.shutdown()
+    for name in runs:
+        out[f"extra_ms_per_step_{name}"] = (
+            statistics.mean(out[f"nccl_w1_{name}_ms_per_step"])
+            - statistics.mean(out[f"no_group_{name}_ms_per_step"]))
+    return out, launches
+
+
+def phase_distributed(device, work_dir, cli_losses):
+    """``--dist-*`` on the card (parallel/distributed.py):
+
+    (a) the train_human CLI through the port's launcher at -n 1 (one NCCL
+        rank, ``trainer_child``), phase trainer_cli's two adapt runs
+        (CLI_ADAPT_RUNS: unbundled and with --steps-per-dispatch BUNDLE_N,
+        the step's collectives captured in the CUDA graphs) on a fresh copy
+        of its RHD tree with its flags, both at once: under deterministic
+        cuDNN with TF32 off the printed losses must equal that phase's runs
+        without --dist-* (``cli_losses``; at one rank the collectives are
+        identities and the data order, control stream and BatchNorm those
+        of one process); occlusion_warp CLI_ITERS times on the rank;
+    (b) meanwhile, DIST_RANKS spawned ranks sharing cuda:0 over gloo (NCCL
+        takes one rank a GPU), each with DIST_B / DIST_RANKS rows of one
+        adapt step at full width (pose_resnet101, 256², float32, SGD, both
+        style directions, occlusion with given draws) against the
+        one-process step on the whole batch in this process: the teacher
+        mask and the occlusion gate and rectangles equal (DIST_DECISIONS);
+        the kth-value threshold the same on both ranks and within 1e-3 of
+        the one process's; losses and PCK within 1e-3; the student's
+        parameter changes (all tensors as one vector) no further from the
+        one process's in norm than a 1e-6 relative change of the student's
+        parameters, which leaves those decisions and the rectified targets
+        as they were (checked), moves the one process's (DIST_FLOOR;
+        float32 train-mode gradients of a BatchNorm model are not smooth at
+        float32 resolution, tests/grad_precision_probe.py); how many entries
+        of the rectified targets differ (DIST_TARGETS; recorded); both
+        models' running statistics within 1e-3; both ranks' states
+        bit-equal; occlusion_warp once on each rank; the model's
+        BatchNorm2d in float64 at the stem's and the last stage's shapes
+        (DIST_BN_SHAPES) against one process on the whole batch within
+        DIST_BN_TOL: output, running statistics, and the input's, weight's
+        and bias's gradients; then, with the card otherwise idle, each
+        rank's host-timed ms of the gradient all-reduce and of one step's
+        BatchNorm all-reduces over gloo;
+    (c) in this process, ms per adapt step of phase main's path with no
+        group and in a one-process NCCL group, in turns (none, NCCL, NCCL,
+        none), unbundled and bundled, and the NCCL gradient all-reduce's
+        ms.
+
+    Returns the launches of each path."""
+    import multiprocessing
+
+    import torch
+
+    if not cli_losses:
+        raise AssertionError("phase distributed needs phase trainer_cli's adapt runs")
+    t0 = time.perf_counter()
+    root = os.path.join(work_dir, "rhd_dist")
+    write_fake_rhd(root)  # the tree trainer_cli's adapt runs read, before its lengthening
+    none = dict.fromkeys(_counters(), 0)
+    want = dict(none, occlusion_warp=CLI_ITERS)
+    extra = dict(CLI_ADAPT_RUNS)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    launcher = [sys.executable, "-m", "uda_poseestimation_torch.tools.launch_distributed",
+                "-n", "1", "--", sys.executable, "-c",
+                "import chip_smoke; chip_smoke.trainer_child()"]
+    procs, ranks, launches = {}, [], {}
+    try:
+        # (a): both launcher runs at once, in the background
+        for name, cli_run in DIST_CLI_RUNS:
+            with open(os.path.join(work_dir, f"dist_cli_{name}.out"), "w") as out:
+                procs[name] = subprocess.Popen(
+                    launcher + [os.path.join(work_dir, f"dist_counts_{name}"),
+                                *trainer_cli_args(root, device), *extra[cli_run],
+                                "--log", f"logs/dist_{name}"],
+                    cwd=work_dir, env=env, stdout=out, stderr=subprocess.STDOUT)
+        # (b): the ranks start (imports, models) while the references run here
+        t1 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        ranks = [ctx.Process(target=_gloo_rank, args=(r, work_dir, device.type))
+                 for r in range(DIST_RANKS)]
+        for p in ranks:
+            p.start()
+        launches["reference"], floor = _dist_reference(device, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for proc in procs.values():
+            proc.wait(timeout=600)
+        a_s = time.perf_counter() - t0
+        with open(os.path.join(work_dir, "dist_go"), "w"):
+            pass  # the ranks time their collectives now
+        for p in ranks:
+            p.join(600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    # (a)
+    cli = {}
+    for name, cli_run in DIST_CLI_RUNS:
+        with open(os.path.join(work_dir, f"dist_cli_{name}.out")) as f:
+            printed = f.read()
+        if procs[name].returncode != 0:
+            raise AssertionError(f"run {name} exited {procs[name].returncode}: "
+                                 f"{printed[-3000:]}")
+        with open(os.path.join(work_dir, f"dist_counts_{name}.rank0")) as f:
+            counted = json.load(f)
+        key = f"cli_{name}"
+        launches[key] = counted["launches"]
+        if launches[key] != want:
+            raise AssertionError(f"run {name}: launches {launches[key]}, needs {want}")
+        got, ref = printed_losses(printed), cli_losses[cli_run]
+        cli[key] = {"losses": got, "trainer_cli_losses": ref, "losses_equal": got == ref,
+                    "child_seconds": counted["seconds"], **printed_times(printed)}
+        if len(got) != CLI_ITERS or got != ref:
+            raise AssertionError(f"run {name}: losses {got} at -n 1, {ref} in phase "
+                                 f"trainer_cli ({cli_run}) without a group")
+    emit({"phase": "distributed", "part": "cli_nccl_w1", "runs": cli,
+          "launches": {k: v for k, v in launches.items() if k.startswith("cli")},
+          "seconds_with_part_b_beside": a_s})
+
+    # (b)
+    if [p.exitcode for p in ranks] != [0] * DIST_RANKS:
+        raise AssertionError(f"gloo ranks exited {[p.exitcode for p in ranks]}")
+    results = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work_dir, f"dist_rank{r}.json")) as f:
+            results.append(json.load(f))
+        launches[f"gloo_rank{r}"] = results[-1]["launches"]
+    os.remove(os.path.join(work_dir, "dist_reference.pt"))
+    checks = {
+        "decisions_equal": all(r["decisions_differ"][k] == 0 for r in results
+                               for k in DIST_DECISIONS),
+        "mask_thresh": all(r["mask_thresh_rel_err"] <= 1e-3 for r in results)
+        and len({r["mask_thresh"] for r in results}) == 1,
+        "occlusion_mixed": 0 < sum(r["occluded"] for r in results) < DIST_B,
+        "losses": all(max(r["loss_rel_err"].values()) <= 1e-3 for r in results),
+        "floor_decisions_equal": not any(floor["decisions_differ"].values()),
+        "param_deltas": all(r["delta_rel_norm_err_whole"] <= floor["delta_rel_norm_whole"]
+                            for r in results),
+        "bn_stats": all(r["stats_rel_err"] <= 1e-3 for r in results),
+        "bn_f64": all(max(r["bn_f64_rel_err"].values()) <= DIST_BN_TOL for r in results),
+        "ranks_bit_equal": len({r["state_digest"] for r in results}) == 1,
+        "launches": all(r["launches"] == dict(none, occlusion_warp=1) for r in results)
+        and launches["reference"] == dict(none, occlusion_warp=1)}
+    emit({"phase": "distributed", "part": "gloo_ranks", "ranks": results,
+          "floor": floor, "checks": checks,
+          "seconds": time.perf_counter() - t1})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase distributed, gloo ranks: {failed}")
+
+    # (c)
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing, w1_launches = _nccl_w1_ms(device)
+    for name, got in w1_launches.items():
+        n = DIST_STEPS if "_unbundled_" in name else DIST_BUNDLES * BUNDLE_N
+        if got != dict(none, occlusion_warp=n):
+            raise AssertionError(f"{name}: launches {got}")
+        launches[name] = got
+    emit({"phase": "distributed", "part": "nccl_w1_step", **timing,
+          "seconds": time.perf_counter() - t2})
+    emit({"phase": "distributed", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi_line()})
     return launches
 
 
@@ -3782,7 +4367,8 @@ def main(argv=None) -> int:
                                             work_dir, main_run, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
-        cli_launches = timed("trainer_cli", phase_trainer_cli, device, work_dir, checkpoint)
+        cli_launches, cli_losses = timed("trainer_cli", phase_trainer_cli, device, work_dir,
+                                         checkpoint)
         gc.collect()
         torch.cuda.empty_cache()
         pair_launches = timed("trainer_pairs", phase_trainer_pairs, device, work_dir)
@@ -3792,6 +4378,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         animal_launches = timed("trainer_animals", phase_trainer_animals, device, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_launches = timed("distributed", phase_distributed, device, work_dir, cli_losses)
     gc.collect()
     torch.cuda.empty_cache()
     learning_launches = timed("learning", phase_learning, device)
@@ -3806,6 +4395,7 @@ def main(argv=None) -> int:
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()},
                **decoder_launches,
                **{f"trainer_animals_{k}": v for k, v in animal_launches.items()},
+               **{f"distributed_{k}": v for k, v in dist_launches.items()},
                **learning_launches}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):

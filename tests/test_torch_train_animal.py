@@ -7,8 +7,10 @@ and ``train_animal_other.py`` (the JAX package's trainers).
   port adds only ``--device``, and its ``-a`` choices are its own
   constructors. Both animal lines of ``script`` parse to the same
   namespace in both packages.
-- The ``--dist-*`` flags raise at start, naming their ROADMAP item; without
-  a card and without ``--device cpu`` the CLI raises. (``--device-aug`` is
+- The ``--dist-*`` wiring at start, as the human trainer's: without
+  ``--dist-coordinator`` one process runs; a global batch that the
+  processes do not divide raises; a missing ``--seed`` warns and uses 0.
+  Without a card and without ``--device cpu`` the CLI raises. (``--device-aug`` is
   held in ``tests/test_torch_animal_device_aug.py`` and
   ``tests/test_torch_train_animal_device_aug.py``.)
 - The datasets and the per-category evaluation sets are built in the JAX
@@ -81,6 +83,7 @@ from uda_poseestimation_torch import train_human as thuman
 from uda_poseestimation_torch.data import transforms as TT
 from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet, StyleNet
 from uda_poseestimation_torch.parallel import StepConfig, create_state
+from uda_poseestimation_torch.parallel import distributed as dist
 from uda_poseestimation_torch.parallel import train_step as tts
 from uda_poseestimation_torch.utils import CompleteLogger
 from uda_poseestimation_torch.utils import checkpoint as tckpt
@@ -139,15 +142,52 @@ def test_script_lines_parse_alike(program):
     assert got["decoder_name"] == "saved_models/decoder_animal_0_1.pth.tar"
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--dist-coordinator", "localhost:1"], "A12"),
-    (["--dist-num-processes", "2"], "A12"), (["--dist-process-id", "1"], "A12")])
-def test_unported_flags_raise(tmp_path, monkeypatch, flags, item):
+def _seen_by_train(monkeypatch):
+    """Replace ``train_animal._train`` by a recorder of what it would run
+    with."""
+    seen = {}
+
+    def record(args, device, logger, eval_categories):
+        seen.update(group=dist.process_count() if dist.is_active() else None,
+                    device=str(device), file_output=logger.file_output, seed=args.seed,
+                    categories=eval_categories)
+
+    monkeypatch.setattr(ttrain, "_train", record)
+    return seen
+
+
+@pytest.mark.parametrize("flags", [["--dist-num-processes", "2"],
+                                   ["--dist-process-id", "1"]])
+def test_dist_flags_without_coordinator_run_one_process(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)
-    args = ttrain.build_parser().parse_args(["--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=rf"{flags[0]}.*ROADMAP\.md {item}"):
+    seen = _seen_by_train(monkeypatch)
+    ttrain.main(ttrain.build_parser().parse_args(["--device", "cpu", "--seed", "4"] + flags))
+    assert seen == {"group": None, "device": "cpu", "file_output": True, "seed": 4,
+                    "categories": ("horse", "tiger")}
+    assert not dist.is_active()
+
+
+def test_dist_batch_not_divisible_raises(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = ttrain.build_parser().parse_args(
+        ["--device", "cpu", "-b", "6", "--dist-coordinator", f"file://{tmp_path}/rendezvous",
+         "--dist-num-processes", "4"])
+    with pytest.raises(ValueError, match="global batch 6 not divisible by 4 processes"):
         ttrain.main(args)
-    assert os.listdir(tmp_path) == []
+    assert os.listdir(tmp_path) == [] and not dist.is_active()
+
+
+def test_dist_without_seed_warns_and_uses_0(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    seen = _seen_by_train(monkeypatch)
+    args = ttrain.build_parser().parse_args(
+        ["--device", "cpu", "--dist-coordinator", f"file://{tmp_path}/rendezvous",
+         "--dist-num-processes", "1"])
+    with pytest.warns(UserWarning, match="requires a seed.*using --seed 0"):
+        ttrain.main(args, eval_categories=("dog", "sheep"))
+    assert seen == {"group": 1, "device": "cpu", "file_output": True, "seed": 0,
+                    "categories": ("dog", "sheep")}
+    assert not dist.is_active()
 
 
 def test_cli_needs_a_card_unless_asked(tmp_path, monkeypatch):

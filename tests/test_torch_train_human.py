@@ -6,9 +6,13 @@ against the repository's ``train_human.py`` (the JAX package's trainer).
   port adds only ``--device``, and its ``-a`` choices are its own
   constructors. Every ``train_human.py`` line of ``script`` parses to the
   same namespace in both.
-- The flags whose machinery is not ported raise at start, naming their
-  ROADMAP item; without a card and without ``--device cpu`` the CLI raises
-  before it writes anything.
+- The ``--dist-*`` wiring at start: ``--dist-num-processes`` or
+  ``--dist-process-id`` without ``--dist-coordinator`` run one process, as
+  in JAX; a global batch that the processes do not divide raises before
+  joining; a missing ``--seed`` warns and uses 0 (a group of one process
+  through a rendezvous file). Without a card and without ``--device cpu``
+  the CLI raises before it writes anything. (Two ranks run in
+  ``tests/test_torch_train_distributed.py``.)
 - ``--decoder-name`` reads the reference's torch files as the JAX package's
   ``load_style_net_params`` does: the same weights.
 - The four ``script`` pairs (f2r, s2h, s2l, r2h): every dataset name of
@@ -66,6 +70,7 @@ from uda_poseestimation_torch import models, weights
 from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet, StyleNet
 from uda_poseestimation_torch.parallel import StepConfig, create_state, make_adapt_step, \
     make_pretrain_step
+from uda_poseestimation_torch.parallel import distributed as dist
 from uda_poseestimation_torch.utils import CompleteLogger
 from uda_poseestimation_torch.utils import checkpoint as tckpt
 
@@ -111,15 +116,49 @@ def test_script_lines_parse_alike(index):
     assert got["lambda_t"] == 0.0 and got["decoder_name"].startswith("saved_models/")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--dist-coordinator", "localhost:1"], "A12"),
-    (["--dist-num-processes", "2"], "A12"), (["--dist-process-id", "1"], "A12")])
-def test_unported_flags_raise(tmp_path, monkeypatch, flags, item):
+def _seen_by_train(monkeypatch, module):
+    """Replace ``module._train`` by a recorder of what it would run with."""
+    seen = {}
+
+    def record(args, device, logger, *_):
+        seen.update(group=dist.process_count() if dist.is_active() else None,
+                    device=str(device), file_output=logger.file_output, seed=args.seed)
+
+    monkeypatch.setattr(module, "_train", record)
+    return seen
+
+
+@pytest.mark.parametrize("flags", [["--dist-num-processes", "2"],
+                                   ["--dist-process-id", "1"]])
+def test_dist_flags_without_coordinator_run_one_process(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)
-    args = ttrain.build_parser().parse_args(FIXTURE_ARGS + ["--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=rf"{flags[0]}.*ROADMAP\.md {item}"):
+    seen = _seen_by_train(monkeypatch, ttrain)
+    ttrain.main(ttrain.build_parser().parse_args(FIXTURE_ARGS + ["--device", "cpu"] + flags))
+    assert seen == {"group": None, "device": "cpu", "file_output": True, "seed": 12}
+    assert not dist.is_active()
+
+
+def test_dist_batch_not_divisible_raises(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = ttrain.build_parser().parse_args(
+        FIXTURE_ARGS + ["--device", "cpu", "-b", "5", "--dist-coordinator",
+                        f"file://{tmp_path}/rendezvous", "--dist-num-processes", "2"])
+    with pytest.raises(ValueError, match="global batch 5 not divisible by 2 processes"):
         ttrain.main(args)
-    assert os.listdir(tmp_path) == []
+    assert os.listdir(tmp_path) == [] and not dist.is_active()
+
+
+def test_dist_without_seed_warns_and_uses_0(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    seen = _seen_by_train(monkeypatch, ttrain)
+    argv = [a for a in FIXTURE_ARGS if a not in ("--seed", "12")]
+    args = ttrain.build_parser().parse_args(
+        argv + ["--device", "cpu", "--dist-coordinator", f"file://{tmp_path}/rendezvous",
+                "--dist-num-processes", "1"])
+    with pytest.warns(UserWarning, match="requires a seed.*using --seed 0"):
+        ttrain.main(args)
+    assert seen == {"group": 1, "device": "cpu", "file_output": True, "seed": 0}
+    assert not dist.is_active()  # left at the end
 
 
 def test_cli_needs_a_card_unless_asked(tmp_path, monkeypatch):

@@ -14,6 +14,14 @@ at their first launch (``_build.py``); importing the package needs neither a
 card nor a compiler.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # imported on first use, so that a torch-free module of the package
+    # (the launcher) starts without importing torch
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,6 +20,9 @@ draws use ``-j 0``. The workers are forked (the default start method on
 Linux), so they start with their parent's modules and datasets and import
 and unpickle nothing; no worker process touches CUDA.
 
+``PartitionSampler`` gives a rank its share of a training set under
+several processes (the JAX loader's ``partition``).
+
 ``CachedDataset`` is the decoded-canvas cache of ``--decode-cache`` (the
 JAX package's, whose thread workers share one dict). Here the workers are
 processes, so the cache lives in shared memory mapped before they fork: an
@@ -36,7 +39,7 @@ import pickle
 
 import numpy as np
 import torch
-from torch.utils.data import DataLoader
+from torch.utils.data import DataLoader, Sampler
 
 
 def default_collate(items):
@@ -55,12 +58,44 @@ def default_collate(items):
 
 
 def make_loader(dataset, batch_size: int, shuffle: bool = False, num_workers: int = 0,
-                drop_last: bool = False, pin_memory: bool = False) -> DataLoader:
-    """A DataLoader over ``dataset`` with ``default_collate``."""
+                drop_last: bool = False, pin_memory: bool = False,
+                sampler=None) -> DataLoader:
+    """A DataLoader over ``dataset`` with ``default_collate``; ``sampler``
+    (a ``PartitionSampler``) replaces ``shuffle``."""
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
-                      num_workers=num_workers, drop_last=drop_last,
+                      sampler=sampler, num_workers=num_workers, drop_last=drop_last,
                       collate_fn=default_collate, pin_memory=pin_memory,
                       persistent_workers=num_workers > 0)
+
+
+class PartitionSampler(Sampler):
+    """One rank's indices of a dataset under torch-DistributedSampler
+    semantics, exactly the JAX package's ``DataLoader(partition=(rank,
+    world), seed=seed, shuffle=True)``: every rank draws the same
+    permutation of each pass from ``np.random.default_rng(seed * 1000003 +
+    pass)`` and keeps ``order[rank::world][:n // world]``, so every rank has
+    as many batches a pass and a kept sample is seen once a pass. The pass
+    counter advances when a pass starts (``iter`` runs in the loader's
+    process; its workers get the indices)."""
+
+    def __init__(self, n: int, rank: int, world: int, seed: int):
+        if not 0 <= rank < world:
+            raise ValueError(f"bad partition {(rank, world)}")
+        self.n, self.rank, self.world, self.seed = n, rank, world, int(seed)
+        self.epoch = 0
+
+    def indices(self, epoch: int) -> np.ndarray:
+        order = np.arange(self.n)
+        np.random.default_rng(self.seed * 1000003 + epoch).shuffle(order)
+        return order[self.rank::self.world][:self.n // self.world]
+
+    def __iter__(self):
+        order = self.indices(self.epoch)  # runs at the pass's first index
+        self.epoch += 1
+        yield from order.tolist()
+
+    def __len__(self):
+        return self.n // self.world
 
 
 class ForeverDataIterator:

@@ -30,6 +30,11 @@ user of the JAX engine can observe:
   target is fetched in pretraining only when s2t fires, and a bundle's
   other iterations carry zero style inputs (``pretrain_style_template``).
 
+Under several processes (``parallel/distributed.py``) each rank runs these
+loops on its rows: the control draws come from the epoch's synchronized
+stream (``_control_rng``, JAX ``engine._control_rng``), only rank 0 prints
+and draws images, and validation splits each batch over the ranks.
+
 Batches stay on the host until the step copies them to its device
 (``parallel/train_step.py``), asynchronously from page-locked memory, which
 is what the loader gives when the device is CUDA.
@@ -47,6 +52,7 @@ from .device import DeviceLike, resolve_device
 from .ops.device_aug import (animal_source_views, animal_views, augment_views,
                               draw_animal_source, draw_rrc, draw_view, rrc_views)
 from .ops.pck import get_max_preds_np
+from .parallel import distributed as dist
 from .utils.meter import AverageMeter, AverageMeterList, ProgressMeter
 
 
@@ -153,7 +159,8 @@ class DeviceAugPipeline(_DeviceAugBase):
     occlusion generator), else from ``self.generator``; or injected as
     ``draws``: {"source": ``draw_view`` of (1, B)} and {"target": {"base":
     ``draw_rrc`` of (B,), "student": (1, B), "teacher": (k, B)}}, drawn in
-    that order.
+    that order. Under a process group they are drawn for the global batch
+    and a rank keeps its rows (injected draws are the rank's rows).
     """
 
     def __init__(self, cfg_src, cfg_stu, cfg_tea, k: int, mean, std, seed: int = 0,
@@ -164,13 +171,20 @@ class DeviceAugPipeline(_DeviceAugBase):
         self.mean, self.std = tuple(mean), tuple(std)
 
     def draw_source(self, b: int, canvas: int, generator=None) -> dict:
-        return draw_view(self.cfg_src, (1, b), canvas, self.device, self._gen(generator))
+        g = self._gen(generator)
+        return dist.global_draw(
+            lambda n: draw_view(self.cfg_src, (1, n), canvas, self.device, g), b, axis=1)
 
     def draw_target(self, b: int, canvas: int, generator=None) -> dict:
         g = self._gen(generator)
-        return {"base": draw_rrc(self.cfg_src, (b,), canvas, self.device, g),
-                "student": draw_view(self.cfg_stu, (1, b), canvas, self.device, g),
-                "teacher": draw_view(self.cfg_tea, (self.k, b), canvas, self.device, g)}
+        return {"base": dist.global_draw(
+                    lambda n: draw_rrc(self.cfg_src, (n,), canvas, self.device, g), b),
+                "student": dist.global_draw(
+                    lambda n: draw_view(self.cfg_stu, (1, n), canvas, self.device, g), b,
+                    axis=1),
+                "teacher": dist.global_draw(
+                    lambda n: draw_view(self.cfg_tea, (self.k, n), canvas, self.device, g), b,
+                    axis=1)}
 
     def prep_source(self, canvas, kp, vis, generator=None, draws=None):
         """The source view: (image, target, target_weight, keypoint2d)."""
@@ -315,7 +329,8 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
     only (``host_visualizable``). Draws come from ``generator``, else from
     ``self.generator``, or injected as ``draws``: {"target": {"student":
     ``draw_view`` of (1, B), "teacher": (k, B)}, "source":
-    ``draw_animal_source`` of B}, drawn in that order.
+    ``draw_animal_source`` of B}, drawn in that order; under a process group
+    for the global batch, of which a rank keeps its rows.
     """
 
     host_visualizable = False
@@ -333,11 +348,17 @@ class AnimalDeviceAugPipeline(_DeviceAugBase):
 
     def draw_target(self, b: int, generator=None) -> dict:
         g, size = self._gen(generator), self.cfg_stu.image_size
-        return {"student": draw_view(self.cfg_stu, (1, b), size, self.device, g),
-                "teacher": draw_view(self.cfg_tea, (self.k, b), size, self.device, g)}
+        return {"student": dist.global_draw(
+                    lambda n: draw_view(self.cfg_stu, (1, n), size, self.device, g), b,
+                    axis=1),
+                "teacher": dist.global_draw(
+                    lambda n: draw_view(self.cfg_tea, (self.k, n), size, self.device, g), b,
+                    axis=1)}
 
     def draw_source(self, b: int, generator=None) -> dict:
-        return draw_animal_source(self.src_cfg, b, self.device, self._gen(generator))
+        g = self._gen(generator)
+        return dist.global_draw(lambda n: draw_animal_source(self.src_cfg, n, self.device, g),
+                                b)
 
     def prep_source(self, canvas, pts, center, scale, generator=None, draws=None):
         """The source views: (image, target, target_weight, keypoint2d)."""
@@ -462,20 +483,30 @@ def _stack_host_leaves(batches) -> list:
 
 class StyleGate:
     """Host-side per-iteration Bernoulli + alpha draws (reference RNG order),
-    from the global ``np.random`` stream (one process; the JAX package's
-    process-synchronized stream comes with multi-GPU, ROADMAP A12)."""
+    from ``rng``: the global ``np.random`` stream, or the epoch's
+    process-synchronized one (``_control_rng``)."""
 
-    def __init__(self, enabled: bool, freq: float, alpha_range):
+    def __init__(self, enabled: bool, freq: float, alpha_range, rng=None):
         self.enabled = enabled
         self.freq = freq
         self.alpha_range = tuple(alpha_range)
+        self.rng = np.random if rng is None else rng
 
     def draw(self):
         if not self.enabled:
             return False, 0.0
-        if self.freq > np.random.rand():
-            return True, float(np.random.uniform(*self.alpha_range))
+        if self.freq > self.rng.rand():
+            return True, float(self.rng.uniform(*self.alpha_range))
         return False, 0.0
+
+
+def _control_rng(args, epoch):
+    """The epoch's control stream (style gates and alphas, the occlusion
+    generator's seed): the global ``np.random`` (the reference's), or under
+    several processes ``distributed.control_rng``, the same on every rank."""
+    if dist.is_multiprocess():
+        return dist.control_rng(getattr(args, "seed", 0) or 0, epoch)
+    return np.random
 
 
 def _device(state) -> torch.device:
@@ -520,7 +551,7 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
                              prefix="Epoch: [{}]".format(epoch))
 
     gate = StyleGate(style_enabled, getattr(args, "s2t_freq", 0.0),
-                     getattr(args, "s2t_alpha", (0.0, 1.0)))
+                     getattr(args, "s2t_alpha", (0.0, 1.0)), rng=_control_rng(args, epoch))
     n_bundle = _steps_per_dispatch(args)
     if n_bundle > 1 and bundler is not None:
         return _run_pretrain_epoch_bundled(
@@ -539,7 +570,7 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
         losses_s.update(float(metrics["loss_s"]), n)
         batch_time.update(time.time() - end)
         end = time.time()
-        if i % args.print_freq == 0:
+        if i % args.print_freq == 0 and dist.is_primary():
             progress.display(i)
             if visualize is not None and meta_s.get("keypoint2d") is not None:
                 _visualize_source(visualize, x_s, y_s, meta_s["keypoint2d"], i, args)
@@ -579,7 +610,8 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
     ``adapt_step(state, batch, lr, do_s2t, alpha_s2t, do_t2s, alpha_t2s,
     generator=...)`` is ``make_adapt_step``'s step; its occlusion draws (and
     with ``device_aug`` its view draws, made first) come from one generator
-    on the state's device, seeded per epoch from ``np.random``. With
+    on the state's device, seeded per epoch from the control stream
+    (``_control_rng``). With
     ``bundler`` (an ``AdaptStepBundler``) and ``args.steps_per_dispatch >
     1`` the epoch runs n iterations per bundler call. With ``device_aug`` (a
     ``DeviceAugPipeline`` or an ``AnimalDeviceAugPipeline``) the batches are
@@ -595,12 +627,13 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
                               losses_c, acc_s],
                              prefix="Epoch: [{}]".format(epoch))
 
+    ctrl = _control_rng(args, epoch)
     s2t = StyleGate(style_enabled, getattr(args, "s2t_freq", 0.0),
-                    getattr(args, "s2t_alpha", (0.0, 1.0)))
+                    getattr(args, "s2t_alpha", (0.0, 1.0)), rng=ctrl)
     t2s = StyleGate(style_enabled, getattr(args, "t2s_freq", 0.0),
-                    getattr(args, "t2s_alpha", (0.0, 1.0)))
+                    getattr(args, "t2s_alpha", (0.0, 1.0)), rng=ctrl)
     generator = torch.Generator(device=_device(state))
-    generator.manual_seed(int(np.random.randint(0, 2 ** 31 - 1)))
+    generator.manual_seed(int(ctrl.randint(0, 2 ** 31 - 1)))
     n_bundle = _steps_per_dispatch(args)
     if n_bundle > 1 and bundler is not None:
         return _run_adapt_epoch_bundled(
@@ -619,7 +652,7 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
         losses_c.update(float(metrics["loss_c"]), n)
         batch_time.update(time.time() - end)
         end = time.time()
-        if i % args.print_freq == 0:
+        if i % args.print_freq == 0 and dist.is_primary():
             progress.display(i)
             if visualize is not None:
                 _visualize_source(visualize, src[0], y_s, src[3].get("keypoint2d"), i, args)
@@ -702,7 +735,7 @@ def _bundle_flush(meters, progress, args, names):
             for meter, name in zip(loss_meters, names):
                 meter.update(float(m[name][j]), n_img)
             batch_time.update(dt)
-            if (base_i + j) % args.print_freq == 0:
+            if (base_i + j) % args.print_freq == 0 and dist.is_primary():
                 progress.display(base_i + j)
         end[0] = time.time()
 
@@ -817,18 +850,33 @@ def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args,
     return state
 
 
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``n`` rows."""
+    if len(t) == n:
+        return t
+    return torch.cat([t, t.new_zeros((n - len(t),) + tuple(t.shape[1:]))])
+
+
 def run_validate(eval_step, model, val_loader, args, visualize=None):
     """Evaluation loop returning the group PCK (train_human.py:461-500).
 
     ``eval_step(model, x, label, weight)`` is ``make_eval_step``'s. A
     partial last batch runs as it is (no padding), so the loss and PCK of a
     batch are those of its real rows, as the JAX package's padded and
-    rescaled ones are."""
+    rescaled ones are. Under several processes every rank iterates the
+    whole loader, pads each batch with zero rows to a multiple of the
+    processes (PCK skips them by the GT <= 1 rule, their loss is 0) and
+    runs its rows; the eval step reduces the loss and PCK over the ranks,
+    and the loss is rescaled to the real rows' mean (JAX
+    ``engine.run_validate``). Only rank 0 prints and draws."""
     batch_time = AverageMeter("Time", ":6.3f")
     losses = AverageMeter("Loss", ":.2e")
     acc = AverageMeterList(list(range(val_loader.dataset.num_keypoints)), ":3.2f",
                            ignore_val=-1)
     progress = ProgressMeter(len(val_loader), [batch_time, losses], prefix="Test: ")
+    world = dist.process_count()
+    pad_to = -(-val_loader.batch_size // world) * world if world > 1 else None
+    primary = dist.is_primary()
     end = time.time()
     depth = 3  # batches in flight before the oldest one's readback
     pending = deque()
@@ -836,12 +884,15 @@ def run_validate(eval_step, model, val_loader, args, visualize=None):
     def flush(item):
         nonlocal end
         i, n, x, y, loss, acc_per_kpt, meta = item
-        losses.update(float(loss), n)
+        loss = float(loss)
+        if pad_to and n < pad_to:  # the padded rows' zeros are in the mean
+            loss *= pad_to / n
+        losses.update(loss, n)
         # float32 values, as the JAX package's meters accumulate them
         acc.update(list(acc_per_kpt.cpu().numpy()), n)
         batch_time.update(time.time() - end)
         end = time.time()
-        if i % args.val_print_freq == 0:
+        if i % args.val_print_freq == 0 and primary:
             progress.display(i)
             if visualize is not None:
                 pred, _ = get_max_preds_np(y.float().cpu().numpy())
@@ -852,8 +903,13 @@ def run_validate(eval_step, model, val_loader, args, visualize=None):
                           "val_{}_label.jpg".format(i))
 
     for i, (x, label, weight, meta) in enumerate(val_loader):
-        y, loss, acc_per_kpt = eval_step(model, _f32(x), _f32(label), _f32(weight))
-        pending.append((i, len(x), x, y, loss, acc_per_kpt, meta))
+        x, label, weight = _f32(x), _f32(label), _f32(weight)
+        n = len(x)
+        if pad_to:
+            rows = dist.local_rows(pad_to)
+            x, label, weight = (_pad_rows(t, pad_to)[rows] for t in (x, label, weight))
+        y, loss, acc_per_kpt = eval_step(model, x, label, weight)
+        pending.append((i, n, x, y, loss, acc_per_kpt, meta))
         if len(pending) >= depth:
             flush(pending.popleft())
     while pending:

@@ -21,6 +21,7 @@ the train-mode forward changes:
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ..ops.bn_fuse import conv1x1_bn_stats
@@ -34,7 +35,14 @@ def _compute_dtype(x) -> torch.dtype:
 
 
 def conv1x1_bn_train(conv: nn.Conv2d, bn: nn.BatchNorm2d, x):
-    """Train-mode ``bn(conv(x))`` through the fused conv + statistics GEMM."""
+    """Train-mode ``bn(conv(x))`` through the fused conv + statistics GEMM.
+    One process only: its statistics are the rank's, so under a group of
+    several processes it raises (the JAX package keeps the fused path to a
+    mesh of one device)."""
+    if tdist.is_available() and tdist.is_initialized() and tdist.get_world_size() > 1:
+        raise NotImplementedError(
+            "UDA_BN_FUSE=1 (fuse_bn) runs on one process; the fused BatchNorm "
+            "has no whole-batch statistics across processes")
     dt = _compute_dtype(x)
     y, s1, s2 = conv1x1_bn_stats(x.to(dt), conv.weight.to(dt), conv.stride[0])
     n = y.numel() // y.shape[1]

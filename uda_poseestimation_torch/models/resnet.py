@@ -7,7 +7,8 @@ reference's torch state-dict keys (``conv1``, ``bn1``,
 ``layer1.0.conv1``, ``layer2.0.downsample.0``, ...), so reference
 checkpoints load directly.
 
-BatchNorm follows Flax, not torch (see ``BatchNorm2d``).
+BatchNorm follows Flax, not torch (see ``BatchNorm2d``), and in train mode
+under a group of several processes normalizes over the global batch.
 
 ``fuse_bn`` (the JAX package's ``UDA_BN_FUSE=1``, read when ``None``)
 routes each train-mode Bottleneck's conv1, conv3 and downsample 1x1 convs and
@@ -24,6 +25,7 @@ import os
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,6 +45,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     with momentum 1 into two scratch buffers, which then hold exactly this
     batch's mean and unbiased variance (the scratch always holds finite
     values from the last batch, and 0 * finite + stat == stat).
+
+    Under a process group of more than one rank the train-mode forward takes
+    its statistics over the global batch (``parallel/sync_bn.py``).
     """
 
     def __init__(self, num_features: int):
@@ -56,6 +61,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if tdist.is_available() and tdist.is_initialized() and tdist.get_world_size() > 1:
+            from ..parallel.sync_bn import sync_batch_norm
+
+            return sync_batch_norm(self, x)
         y = F.batch_norm(x, self._batch_mean, self._batch_var, self.weight,
                          self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]

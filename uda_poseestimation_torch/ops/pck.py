@@ -77,8 +77,10 @@ def accuracy(output: np.ndarray, target: np.ndarray, hm_type: str = "gaussian",
     return acc, avg_acc, cnt, pred
 
 
-def keypoint_pck_accuracy(output, target, thr: float = 0.5):
-    """(B, K, H, W) heatmaps -> (per_kpt (K,), avg, cnt, preds (B, K, 2))."""
+def pck_counts(output, target, thr: float = 0.5):
+    """(B, K, H, W) heatmaps -> (hits (K,), valid samples (K,), preds
+    (B, K, 2)): per keypoint, how many valid samples lie within ``thr`` and
+    how many are valid. Counts of several batches (ranks) add up."""
     _, _, h, w = output.shape
     pred, _ = get_max_preds(output)
     tgt, _ = get_max_preds(target)
@@ -86,11 +88,21 @@ def keypoint_pck_accuracy(output, target, thr: float = 0.5):
     valid = (tgt[..., 0] > 1) & (tgt[..., 1] > 1)  # (B, K)
     d = torch.linalg.vector_norm((pred - tgt) / norm, dim=-1)  # (B, K)
     hits = ((d < thr) & valid).sum(dim=0).to(torch.float32)
-    n_valid = valid.sum(dim=0).to(torch.float32)
+    return hits, valid.sum(dim=0).to(torch.float32), pred
+
+
+def pck_from_counts(hits, n_valid):
+    """(per_kpt (K,), avg, cnt) of ``pck_counts``' counts."""
     per_kpt = torch.where(n_valid > 0, hits / n_valid.clamp(min=1.0), -1.0)
     counted = per_kpt >= 0
     cnt = counted.sum()
     avg = torch.where(cnt > 0,
                       torch.where(counted, per_kpt, 0.0).sum() / cnt.clamp(min=1),
                       0.0)
-    return per_kpt, avg, cnt, pred
+    return per_kpt, avg, cnt
+
+
+def keypoint_pck_accuracy(output, target, thr: float = 0.5):
+    """(B, K, H, W) heatmaps -> (per_kpt (K,), avg, cnt, preds (B, K, 2))."""
+    hits, n_valid, pred = pck_counts(output, target, thr)
+    return (*pck_from_counts(hits, n_valid), pred)

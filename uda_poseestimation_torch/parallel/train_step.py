@@ -33,6 +33,15 @@ run n steps per call, on the card as CUDA-graph replays of the step. So the
 step may be captured: it never copies from host memory or waits for the
 device (its constants are made on the device, an alpha may be a 0-d
 tensor, a batch already on the device is used as it is).
+
+Under a process group (``parallel/distributed.py``) each rank passes its
+rows of the global batch and the steps keep the whole batch's meaning:
+BatchNorm over the global batch (``parallel/sync_bn.py``, more than one
+rank), the kth value over every rank's activations, the occlusion draws
+made for the global batch of which a rank keeps its rows (injected draws
+are the rank's rows), the gradients averaged before the optimizer step, the
+losses averaged and the PCK counted over the ranks. The updated state is
+then the same on every rank.
 """
 
 from __future__ import annotations
@@ -54,7 +63,8 @@ from ..ops import launches
 from ..ops.affine import chain_coeffs, inverse_affine_coeffs, inverse_warp_heatmaps
 from ..ops.heatmap import get_max_preds, rectify
 from ..ops.occlusion_warp import occlusion_warp
-from ..ops.pck import keypoint_pck_accuracy
+from ..ops.pck import pck_counts, pck_from_counts
+from . import distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,12 +152,13 @@ def make_tx(model: nn.Module, cfg: StepConfig) -> torch.optim.Optimizer:
 def create_state(model: nn.Module, cfg: StepConfig, seed: Optional[int] = 0,
                  device: DeviceLike = None) -> UDAState:
     """Student = ``model`` on ``device``, re-initialized from ``seed`` (None
-    keeps its current weights, e.g. loaded ones); teacher = a real copy of
-    the student (OldWeightEMA init)."""
+    keeps its current weights, e.g. loaded ones), rank 0's under a process
+    group; teacher = a real copy of the student (OldWeightEMA init)."""
     dev = resolve_device(device)
     if seed is not None:
         model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(dev)
+    dist.broadcast_modules(model)  # rank 0's weights under a group
     teacher = copy.deepcopy(model).requires_grad_(False)
     return UDAState(step=0, student=model, teacher=teacher,
                     optimizer=make_tx(model, cfg))
@@ -182,6 +193,32 @@ def _clamp_styled(x, cfg: StepConfig):
 def _set_lr(optimizer: torch.optim.Optimizer, lr: float):
     for group in optimizer.param_groups:
         group["lr"] = float(lr) * group["lr_scale"]
+
+
+def _average_grads(model: nn.Module):
+    """Under a process group, the gradients averaged over the ranks: each
+    rank's loss is the mean over its equal share of the rows, so the average
+    is the global batch's gradient."""
+    if dist.is_active():
+        dist.all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None])
+
+
+def _metrics(losses: Mapping, y, label):
+    """The steps' metrics: ``losses`` (name -> 0-d tensor, detached) and the
+    PCK of ``y`` (per keypoint, the average over the counted keypoints and
+    their count). Under a process group the losses are averaged over the
+    ranks and the PCK counts summed, in one all-reduce, so both are the
+    global batch's."""
+    losses = {k: v.detach() for k, v in losses.items()}
+    hits, n_valid, _ = pck_counts(y, label)
+    if dist.is_active():
+        m, k = len(losses), hits.numel()
+        dt = next(iter(losses.values())).dtype
+        vec = dist.all_reduce_sum(torch.cat([torch.stack(list(losses.values())),
+                                             hits.to(dt), n_valid.to(dt)]))
+        losses = dict(zip(losses, (vec[:m] / dist.process_count()).unbind()))
+        hits, n_valid = vec[m:m + k].float(), vec[m + k:].float()
+    return losses, pck_from_counts(hits, n_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -329,17 +366,21 @@ def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
             occlusion = None
             if cfg.occlude_rate > -1:
                 b, k = y_t_tea_recon.shape[:2]
-                draws = (occlusion_draws if occlusion_draws is not None
-                         else draw_occlusion(b, k, dev, generator))
+                draws = occlusion_draws
+                if draws is None:  # the global batch's draws, this rank's rows
+                    draws = dist.global_draw(
+                        lambda n: draw_occlusion(n, k, dev, generator), b)
                 x_t_stu, do, rect = _occlude_batch(x_t_stu, y_t_tea_recon,
                                                    aug_stu, cfg, draws)
                 occlusion = (do, rect)
             # confidence mask: global kth-value over the (B*K) activations
-            # (train_human.py:427-430); kthvalue is 1-indexed like torch's
+            # (train_human.py:427-430), every rank's rows under a group;
+            # kthvalue is 1-indexed like torch's
             activates = y_t_tea_recon.amax(dim=(2, 3))  # (B, K)
             y_t_tea_rect = rectify(y_t_tea_recon, cfg.sigma)
-            kth = max(int(cfg.mask_ratio * activates.numel()), 1)
-            mask_thresh = torch.kthvalue(activates.reshape(-1), kth).values
+            whole = dist.all_gather_rows(activates) if dist.is_active() else activates
+            kth = max(int(cfg.mask_ratio * whole.numel()), 1)
+            mask_thresh = torch.kthvalue(whole.reshape(-1), kth).values
             tea_mask = activates > mask_thresh
 
         # --- grad region: student forwards + losses ------------------------
@@ -351,6 +392,7 @@ def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
         loss_all = loss_s + cfg.lambda_c * loss_c
         state.optimizer.zero_grad(set_to_none=True)
         loss_all.backward()
+        _average_grads(student)
         grads = ({n: p.grad.detach().clone() for n, p in student.named_parameters()}
                  if cfg.aux_outputs else None)
         _set_lr(state.optimizer, lr)
@@ -358,9 +400,9 @@ def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
         ema_update(teacher, student, cfg.teacher_alpha)
 
         y_s = y_s.detach()
-        _, acc_avg, acc_cnt, _ = keypoint_pck_accuracy(y_s, label_s)
-        metrics = {"loss_all": loss_all.detach(), "loss_s": loss_s.detach(),
-                   "loss_c": loss_c.detach(), "acc_s": acc_avg, "acc_cnt": acc_cnt}
+        losses, (_, acc_avg, acc_cnt) = _metrics(
+            {"loss_all": loss_all, "loss_s": loss_s, "loss_c": loss_c}, y_s, label_s)
+        metrics = {**losses, "acc_s": acc_avg, "acc_cnt": acc_cnt}
         if cfg.aux_outputs:
             metrics["aux"] = {
                 "x_s_styled": x_s, "x_t_teas_styled": x_t_teas,
@@ -412,12 +454,12 @@ def make_pretrain_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
         loss = joints_mse_loss(y_s, label_s, batch["weight_s"][..., 0])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        _average_grads(student)
         _set_lr(state.optimizer, lr)
         state.optimizer.step()
         y_s = y_s.detach()
-        _, acc_avg, acc_cnt, _ = keypoint_pck_accuracy(y_s, label_s)
-        loss = loss.detach()
-        metrics = {"loss_all": loss, "loss_s": loss, "acc_s": acc_avg,
+        losses, (_, acc_avg, acc_cnt) = _metrics({"loss": loss}, y_s, label_s)
+        metrics = {"loss_all": losses["loss"], "loss_s": losses["loss"], "acc_s": acc_avg,
                    "acc_cnt": acc_cnt}
         state.step += 1
         return state, metrics, y_s
@@ -490,6 +532,9 @@ class _StagedSteps:
     next call of the case captures the step into a CUDA graph on that
     stream and replays it; every later call replays it. The graphs share one
     memory pool (they never run at once), and each holds its static outputs.
+    Under an NCCL process group the step's collectives are captured too (one
+    collective runs eagerly on the side stream before each capture); a gloo
+    group's cannot be, so a gloo group on the card raises.
     A graph holds the learning rate, the occlusion generator, the
     optimizer's hyper-parameters and the state's tensors as they were at its
     capture, so a call with another lr or generator, or on a state whose
@@ -547,6 +592,10 @@ class _StagedSteps:
         """Run the step once per (inputs[j], cases[j]) in order; returns the
         state, the metrics stacked (n,) and the last step's y_s."""
         cuda = self.device.type == "cuda"
+        if cuda and not dist.graph_capturable():
+            raise RuntimeError(
+                "--steps-per-dispatch > 1 on CUDA needs an NCCL process group: "
+                "gloo's collectives cannot be captured in a CUDA graph")
         if cuda:
             make_capturable(state.optimizer)
             if (float(lr), generator, _fingerprint(state)) != self._key:
@@ -589,6 +638,7 @@ class _StagedSteps:
         return metrics, y_s
 
     def _capture(self, state, static, lr, case, generator):
+        dist.warm_up(self._side_stream())  # NCCL's communicator, before the capture
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
@@ -710,7 +760,9 @@ def make_eval_step(device: DeviceLike = None):
     """Inference forward + loss + per-keypoint PCK (train_human.py:461-500).
 
     Returns ``eval_fn(model, x, label, weight)`` -> ``(y, loss,
-    acc_per_kpt)`` with ``x`` NHWC; the model runs in eval mode.
+    acc_per_kpt)`` with ``x`` NHWC; the model runs in eval mode. Under a
+    process group each rank passes its rows of the batch and gets its rows'
+    ``y`` and the whole batch's loss and PCK.
     """
     dev = resolve_device(device)
 
@@ -720,8 +772,8 @@ def make_eval_step(device: DeviceLike = None):
                                       dev).values()
         model.eval()
         y = model(_nchw(x))
-        loss = joints_mse_loss(y, label, weight[..., 0])
-        acc_per_kpt, _, _, _ = keypoint_pck_accuracy(y, label)
-        return y, loss, acc_per_kpt
+        losses, (acc_per_kpt, _, _) = _metrics(
+            {"loss": joints_mse_loss(y, label, weight[..., 0])}, y, label)
+        return y, losses["loss"], acc_per_kpt
 
     return eval_fn

@@ -30,8 +30,10 @@ items in a ``CachedDataset`` of G GB (``data/loader.py``), beside the frame
 arena of the other sets. A source without a raw mode stays on the host, and
 only the adapt phase builds its target views on the device, as in JAX.
 
-Not ported yet, and refused at start with the ROADMAP item that brings
-them: the ``--dist-*`` multi-process flags (A12).
+``--dist-*`` runs it as one data-parallel run over several processes, as
+the human trainer does (``train_human.run_main``): the training loaders give
+each rank its share, every rank validates its rows of each batch, and rank
+0 writes the files.
 """
 
 from __future__ import annotations
@@ -48,11 +50,10 @@ from .data import ForeverDataIterator, make_loader
 from .data import transforms as T
 from .data.loader import CachedDataset
 from .data.util import FLIP_PAIRS, FrameArena
-from .device import resolve_device
 from .engine import AnimalDeviceAugPipeline, run_validate
-from . import train_human
 from .ops.device_aug import AnimalSourceAugConfig, DeviceAugConfig, flip_perm_from_pairs
-from .train_human import ARCHITECTURES, Validation, run_training, seed_host_streams
+from .train_human import (ARCHITECTURES, Validation, reseed_after_splits, run_main,
+                          run_training, seed_host_streams, train_loader)
 from .utils import CompleteLogger
 
 cv2.setNumThreads(1)  # the loader workers' augmentation, one thread each
@@ -118,15 +119,12 @@ def build_data(args, pin: bool, eval_categories) -> Data:
     if args.decode_cache > 0 and source_on_device(args, train_source_dataset):
         # raw items are decoded frames only, deterministic: memoizable
         source_items = CachedDataset(train_source_dataset, max_bytes=args.decode_cache * 1e9)
-    train_source_loader = make_loader(source_items, args.batch_size, shuffle=True,
-                                      num_workers=args.workers, drop_last=True,
-                                      pin_memory=pin)
+    train_source_loader = train_loader(source_items, args, pin, target=False)
     val_source_loader = eval_loader(dataset(args.source, is_train=False))
-    train_target_loader = make_loader(
+    train_target_loader = train_loader(
         dataset(args.target_ssl, is_train=True, transforms_stu=tgt_train_transform_stu,
                 transforms_tea=tgt_train_transform_tea),
-        args.batch_size, shuffle=True, num_workers=args.workers, drop_last=True,
-        pin_memory=pin)
+        args, pin, target=True)
     val_target_loader = eval_loader(dataset(args.target, is_train=False))
     category_loaders = []
     for category in eval_categories:
@@ -137,13 +135,8 @@ def build_data(args, pin: bool, eval_categories) -> Data:
 
 
 def main(args: argparse.Namespace, eval_categories=("horse", "tiger")):
-    train_human.check_ported(args)
-    device = resolve_device(args.device)
-    logger = CompleteLogger(args.log + "_" + args.arch, args.phase)
-    try:
-        _train(args, device, logger, eval_categories)
-    finally:
-        logger.close()
+    run_main(args, lambda args, device, logger: _train(args, device, logger,
+                                                       eval_categories), CompleteLogger)
 
 
 def _train(args, device, logger, eval_categories):
@@ -153,6 +146,7 @@ def _train(args, device, logger, eval_categories):
     logger.write("Target train: {}".format(len(data.train_target_loader)))
     logger.write("Source test: {}".format(len(data.val_source_loader)))
     logger.write("Target test: {}".format(len(data.val_target_loader)))
+    reseed_after_splits(args)
 
     def validate(eval_step, model, visualize):
         return Validation(
@@ -338,7 +332,10 @@ def build_parser():
                         help="iterations per bundler call (CUDA-graph replays on "
                              "the card); 1 disables")
     parser.add_argument("--dist-coordinator", type=str, default=None,
-                        help="multi-process data parallelism (not ported: ROADMAP A12)")
+                        help="host:port of process 0 (or a file:// URL): multi-process "
+                             "data parallelism, one process a GPU, each loading "
+                             "batch-size/num-processes samples; process 0 writes the "
+                             "logs and checkpoints (shared filesystem)")
     parser.add_argument("--dist-num-processes", type=int, default=1,
                         help="total process count (with --dist-coordinator)")
     parser.add_argument("--dist-process-id", type=int, default=0,

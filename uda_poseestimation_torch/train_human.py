@@ -22,10 +22,18 @@ G`` then caches the training sets' decoded canvases, G GB shared by all
 loader workers (``data/loader.py::CachedDataset``); without
 ``--device-aug`` it is ignored, as in JAX.
 
-Not ported yet, and refused at start with the ROADMAP item that brings
-them: the ``--dist-*`` multi-process flags (A12). Datasets: every
-human dataset of the JAX registry (``data/__init__.py``), so the four
-``train_human.py`` lines of ``script`` (f2r, s2h, s2l, r2h) run.
+``--dist-coordinator``, ``--dist-num-processes`` and ``--dist-process-id``
+run one process a GPU (NCCL; gloo with ``--device cpu``) as one data-parallel
+run over the global batch ``-b`` (``parallel/distributed.py``): each rank
+loads its share through a ``PartitionSampler``, its host streams seeded
+with ``--seed + rank * 10007``; only rank 0 writes the log, the images and
+the checkpoints, and every rank waits for ``best_pt`` before the
+pretrain->adapt reload. ``python -m
+uda_poseestimation_torch.tools.launch_distributed -n N -- <command>`` starts
+N ranks on one host. Without ``--dist-coordinator`` the flags change
+nothing. Datasets: every human dataset of the JAX registry
+(``data/__init__.py``), so the four ``train_human.py`` lines of ``script``
+(f2r, s2h, s2l, r2h) run.
 
 Model weights start from ``create_state(..., seed=--seed)``: the JAX
 package's initializers and distributions, drawn from torch's generator, so
@@ -40,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import random
+import time
 import warnings
 from typing import NamedTuple
 
@@ -51,13 +60,14 @@ from . import data as datasets
 from . import models
 from .data import ForeverDataIterator, make_loader
 from .data import transforms as T
-from .data.loader import CachedDataset
+from .data.loader import CachedDataset, PartitionSampler
 from .device import resolve_device
 from .engine import DeviceAugPipeline, run_adapt_epoch, run_pretrain_epoch, run_validate
 from .models import StyleNet
 from .ops.device_aug import DeviceAugConfig
 from .parallel import AdaptStepBundler, PretrainStepBundler, StepConfig, create_state, \
     make_adapt_step, make_eval_step, make_pretrain_step
+from .parallel import distributed as dist
 from .utils import CompleteLogger, multistep_lr
 from .utils.checkpoint import load_checkpoint, restore_train_state, save_checkpoint
 from .weights import load_style_net_files
@@ -136,19 +146,6 @@ def device_aug_configs(args):
     return src, stu, tea
 
 
-def check_ported(args):
-    """Raise for a flag whose machinery the port does not have yet."""
-    unported = [
-        (args.dist_coordinator is not None, "--dist-coordinator", "A12"),
-        (args.dist_num_processes != 1, "--dist-num-processes != 1", "A12"),
-        (args.dist_process_id != 0, "--dist-process-id != 0", "A12"),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported to uda_poseestimation_torch yet (ROADMAP.md {item})")
-
-
 class Data(NamedTuple):
     """The source training set (its keypoint count sizes the model) and the
     four loaders of a run."""
@@ -182,9 +179,7 @@ def build_data(args, pin: bool) -> Data:
     train_source_dataset = maybe_cache(source_dataset(
         root=args.source_root, transforms=src_train_transform,
         image_size=image_size, heatmap_size=heatmap_size))
-    train_source_loader = make_loader(train_source_dataset, args.batch_size, shuffle=True,
-                                      num_workers=args.workers, drop_last=True,
-                                      pin_memory=pin)
+    train_source_loader = train_loader(train_source_dataset, args, pin, target=False)
     val_source_dataset = source_dataset(root=args.source_root, split="test",
                                         transforms=val_transform,
                                         image_size=image_size, heatmap_size=heatmap_size)
@@ -195,9 +190,7 @@ def build_data(args, pin: bool) -> Data:
         root=args.target_root, transforms_base=base_transform,
         transforms_stu=tgt_train_transform_stu, transforms_tea=tgt_train_transform_tea,
         k=args.k, image_size=image_size, heatmap_size=heatmap_size))
-    train_target_loader = make_loader(train_target_dataset, args.batch_size, shuffle=True,
-                                      num_workers=args.workers, drop_last=True,
-                                      pin_memory=pin)
+    train_target_loader = train_loader(train_target_dataset, args, pin, target=True)
     target_dataset = datasets.__dict__[args.target]
     val_target_dataset = target_dataset(root=args.target_root, split="test",
                                         transforms=val_transform,
@@ -207,25 +200,74 @@ def build_data(args, pin: bool) -> Data:
                 train_target_loader, val_target_loader)
 
 
-def main(args: argparse.Namespace):
-    check_ported(args)
-    device = resolve_device(args.device)
-    logger = CompleteLogger(args.log + "_" + args.arch, args.phase)
+def train_loader(dataset, args, pin: bool, target: bool) -> DataLoader:
+    """A training set's loader: shuffled whole batches of ``-b``; under
+    several processes the rank's share of each global batch, from a
+    ``PartitionSampler`` seeded with ``--seed`` (the target's with ``--seed +
+    7919``, so that equal-length sets do not pair the same samples every
+    pass; JAX ``train_human.py``)."""
+    kwargs = dict(num_workers=args.workers, drop_last=True, pin_memory=pin)
+    if not dist.is_multiprocess():
+        return make_loader(dataset, args.batch_size, shuffle=True, **kwargs)
+    sampler = PartitionSampler(len(dataset), dist.process_index(), dist.process_count(),
+                               args.seed + (7919 if target else 0))
+    return make_loader(dataset, dist.local_batch_size(args.batch_size), sampler=sampler,
+                       **kwargs)
+
+
+def run_main(args: argparse.Namespace, train, logger_cls):
+    """A trainer's ``main``: join the process group of ``--dist-*`` (before
+    the first CUDA use), pick the device (the rank's GPU under a group), open
+    the ``logger_cls`` logger (under a group with rank 0's timestamp on every
+    rank, and files on rank 0 only) and run ``train(args, device, logger)``;
+    the group is left at the end."""
+    multiproc = dist.maybe_initialize_from_args(args)
     try:
-        _train(args, device, logger)
+        device = resolve_device(args.device)
+        stamp = {}
+        if multiproc:
+            device = dist.rank_device(dist.process_index(), device)
+            stamp["now"] = dist.broadcast_str(time.strftime("%Y-%m-%d-%H_%M_%S",
+                                                            time.localtime(time.time())))
+        logger = logger_cls(args.log + "_" + args.arch, args.phase,
+                            file_output=dist.is_primary(), **stamp)
+        try:
+            train(args, device, logger)
+        finally:
+            logger.close()
+        dist.barrier("end")  # no rank leaves while another still runs
     finally:
-        logger.close()
+        dist.shutdown()
+
+
+def main(args: argparse.Namespace):
+    run_main(args, _train, CompleteLogger)
+
+
+def _host_seed(args) -> int:
+    return args.seed + dist.process_index() * 10007
 
 
 def seed_host_streams(args, logger):
     """Log the flags; with ``--seed``, seed ``random``, numpy and torch (the
-    loaders' shuffles and worker seeds)."""
+    loaders' shuffles and worker seeds), with ``--seed + rank * 10007``
+    under a process group, so that the ranks' per-sample augmentation
+    differs (the control draws come from ``distributed.control_rng``)."""
     logger.write(" ".join(f"{k}={v}" for k, v in vars(args).items()))
     if args.seed is not None:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
-        torch.manual_seed(args.seed)
+        random.seed(_host_seed(args))
+        np.random.seed(_host_seed(args))
+        torch.manual_seed(_host_seed(args))
         warnings.warn("You have chosen to seed training.")
+
+
+def reseed_after_splits(args):
+    """Under several processes, seed ``random`` and numpy again after the
+    datasets are built: some split constructors seed ``random`` with a
+    constant (JAX ``train_human.py``)."""
+    if dist.is_multiprocess() and args.seed is not None:
+        random.seed(_host_seed(args))
+        np.random.seed(_host_seed(args))
 
 
 class Validation(NamedTuple):
@@ -243,6 +285,7 @@ def _train(args, device, logger):
     logger.write("Target train: {}".format(len(data.train_target_loader)))
     logger.write("Source test: {}".format(len(data.val_source_loader)))
     logger.write("Target test: {}".format(len(data.val_target_loader)))
+    reseed_after_splits(args)
 
     device_aug = None
     if args.device_aug:
@@ -350,6 +393,7 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
 
     def restore(checkpoint, **kwargs):
         restore_train_state(state, checkpoint, **kwargs)
+        dist.broadcast_modules(state.student, state.teacher)  # rank 0's
         for bundler in bundlers.values():  # their graphs hold the old tensors
             bundler.reset()
 
@@ -369,6 +413,9 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
         train_source_dataset.visualize(img_u8, keypoint2d,
                                        logger.get_image_path("{}.jpg".format(name)))
 
+    if not dist.is_primary():
+        visualize = None  # rank 0 draws the images
+
     if args.phase == "test":
         report(None, validate(eval_step, state.teacher, visualize), None)
         return
@@ -386,6 +433,7 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
                 device_aug=pretrain_aug)
         else:
             if epoch == args.pretrain_epoch:
+                dist.barrier("best_pt")  # rank 0 has written it
                 restore(load_checkpoint(logger.get_checkpoint_path("best_pt")),
                         teacher_source="student")
             state = run_adapt_epoch(
@@ -398,15 +446,16 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
         acc = validate(eval_step, eval_model, visualize if args.debug else None)
 
         if acc.target["all"] > best_acc:
-            save_checkpoint(
-                logger.get_checkpoint_path(
-                    "best_pt" if epoch < args.pretrain_epoch else "best"),
-                {"student": state.student, "teacher": state.teacher,
-                 "stu_optimizer": state.optimizer,
-                 "lr_scheduler": {"epoch": epoch, "milestones": list(args.lr_step),
-                                  "gamma": args.lr_factor},
-                 "epoch": epoch,
-                 "args": args})
+            if dist.is_primary():  # the validation is the same on every rank
+                save_checkpoint(
+                    logger.get_checkpoint_path(
+                        "best_pt" if epoch < args.pretrain_epoch else "best"),
+                    {"student": state.student, "teacher": state.teacher,
+                     "stu_optimizer": state.optimizer,
+                     "lr_scheduler": {"epoch": epoch, "milestones": list(args.lr_step),
+                                      "gamma": args.lr_factor},
+                     "epoch": epoch,
+                     "args": args})
             best_acc = acc.target["all"]
         report(epoch, acc, best_acc)
 
@@ -513,7 +562,6 @@ def build_parser():
     parser.add_argument("--occlude-rate", type=float, default=0.5)
     parser.add_argument("--occlude-thresh", type=float, default=0.9, help="")
     parser.add_argument("--occlude-size", type=int, default=10, help="")
-    # accepted for command-line parity; check_ported refuses what is not ported
     parser.add_argument("--device-aug", action="store_true",
                         help="generate the augmented views on the device (host only "
                              "decodes and resizes)")
@@ -524,7 +572,10 @@ def build_parser():
                         help="iterations per bundler call (CUDA-graph replays on "
                              "the card); 1 disables")
     parser.add_argument("--dist-coordinator", type=str, default=None,
-                        help="multi-process data parallelism (not ported: ROADMAP A12)")
+                        help="host:port of process 0 (or a file:// URL): multi-process "
+                             "data parallelism, one process a GPU, each loading "
+                             "batch-size/num-processes samples; process 0 writes the "
+                             "logs and checkpoints (shared filesystem)")
     parser.add_argument("--dist-num-processes", type=int, default=1,
                         help="total process count (with --dist-coordinator)")
     parser.add_argument("--dist-process-id", type=int, default=0,

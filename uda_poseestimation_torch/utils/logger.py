@@ -49,24 +49,31 @@ class CompleteLogger:
     """Log/checkpoint/visualization directory manager (lib/logger.py:34-119).
 
     ``now`` pins the ``checkpoints_<ts>`` timestamp (default: the current
-    local time).
+    local time). ``file_output=False`` (a rank other than 0) computes the
+    same paths but makes no directory or file and writes nothing.
     """
 
-    def __init__(self, root: str, phase: str = "train", now: str = None):
+    def __init__(self, root: str, phase: str = "train", now: str = None,
+                 file_output: bool = True):
         self.root = root
         self.phase = phase
+        self.file_output = file_output
         self.visualize_directory = os.path.join(self.root.replace("logs", "output_viz"),
                                                 "visualize")
         self.epoch = 0
-        os.makedirs(self.root, exist_ok=True)
-        os.makedirs(self.visualize_directory, exist_ok=True)
-
         if now is None:
             now = time.strftime("%Y-%m-%d-%H_%M_%S", time.localtime(time.time()))
         self.checkpoint_directory = os.path.join(
             self.root.replace("logs", "checkpoints"), "checkpoints_{}".format(now))
         log_filename = os.path.join(self.root, "{}-{}.txt".format(phase, now))
         self.log_filename = log_filename
+        if not file_output:
+            self.logger = None
+            if phase != "train":
+                self.epoch = phase
+            return
+        os.makedirs(self.root, exist_ok=True)
+        os.makedirs(self.visualize_directory, exist_ok=True)
         os.makedirs(self.checkpoint_directory, exist_ok=True)
         if os.path.exists(log_filename):
             os.remove(log_filename)
@@ -82,11 +89,13 @@ class CompleteLogger:
         self.write(log_filename)
 
     def set_epoch(self, epoch):
-        os.makedirs(os.path.join(self.visualize_directory, str(epoch)), exist_ok=True)
+        if self.file_output:
+            os.makedirs(os.path.join(self.visualize_directory, str(epoch)), exist_ok=True)
         self.epoch = epoch
 
     def write(self, message: str):
-        self.logger.write(message + "\n")
+        if self.logger is not None:
+            self.logger.write(message + "\n")
 
     def _get_phase_or_epoch(self):
         return str(self.epoch) if self.phase == "train" else self.phase
@@ -100,4 +109,5 @@ class CompleteLogger:
         return os.path.join(self.checkpoint_directory, str(name) + ".pth")
 
     def close(self):
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
