@@ -88,6 +88,17 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             into a fresh state, held bit-equal (parameters, BatchNorm
             buffers, Adam state), and one more adapt step from each state
             with equal losses.
+7b. serving  the serving path (phase_serving): phase 7's pose_resnet101
+            checkpoint (K=21, 256², bf16 teacher) through the export CLI
+            (uda_poseestimation_torch.tools.export_inference) with
+            --selfcheck on the card; the artifact loaded in a process that
+            imports torch alone and held against this process's call; b =
+            1, 7 and 64 from one artifact against an eager forward of the
+            same module; serve_benchmark on the artifact at b = 1, 32 and 64
+            (images/s, ms a batch, one request's latency, peak memory), each
+            between two timings of the eager module, and the device's and
+            the host's ms a call of both; the artifact's size and export
+            time; no kernel of the port launched.
 8. trainer_cli  when Pillow imports: the port's train_human.main in this
             process on a fake RHD tree (96 training and 16 evaluation frames
             at 320², make_rhd's recipe) with random style weights, at
@@ -272,12 +283,12 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, iters, flush=None):
+def cuda_ms(fn, iters, flush=None, sleep_cycles=SLEEP_CYCLES):
     """Median device time of ``fn`` over ``iters`` launches (CUDA events,
     after one warm-up call), the L2 cache flushed before each launch. The
-    card is held busy (~1 ms) before the start event, so the host has
-    enqueued ``fn``'s kernels before the events start timing: the host's
-    launch overhead does not count as device time."""
+    card is held busy (``sleep_cycles``, ~1 ms by default) before the start
+    event, so the host has enqueued ``fn``'s kernels before the events start
+    timing: the host's launch overhead does not count as device time."""
     import torch
 
     fn()
@@ -285,7 +296,7 @@ def cuda_ms(fn, iters, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2191,6 +2202,194 @@ def phase_trainer_engine(device, work_dir, main_run, profile_dir=None):
           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
           "seconds": time.perf_counter() - t0})
     return launches, path
+
+
+# phase serving: the export CLI, the artifact on the card, the serve harness
+SERVE_BATCHES = (1, 32, 64)
+SERVE_CHECK_BATCHES = (1, 7, 64)
+SERVE_REPS = 30
+# ~40 ms at the H100's ~2 GHz SM clock: longer than the host takes to enqueue
+# one call (~15 ms), so cuda_ms times the device's work alone
+SERVE_SLEEP_CYCLES = 80_000_000
+# a serving process that imports torch alone (run in isolated mode, so the
+# checkout is not on its path). It starts while the CLI exports and warms
+# up meanwhile (CUDA, and cuDNN's bf16 convolutions and BatchNorm, which a
+# fresh process loads at its first call), waits for its images, then loads
+# the artifact on the card and calls it once.
+SERVE_CHILD = """
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+import torch.nn.functional as F
+x = torch.zeros(1, 8, 8, 8, device="cuda")
+w = torch.zeros(8, 8, 3, 3, device="cuda")
+with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+    F.batch_norm(F.conv_transpose2d(F.conv2d(x, w), w), torch.zeros(8, device="cuda"),
+                 torch.ones(8, device="cuda"))
+torch.cuda.synchronize()
+artifact, images, out = sys.argv[1:]
+started = time.perf_counter()
+deadline = time.monotonic() + 600
+while not os.path.exists(images):
+    if time.monotonic() > deadline:
+        sys.exit("no images within 600 s")
+    time.sleep(0.05)
+t1 = time.perf_counter()
+program = torch.export.load(artifact).module()
+t2 = time.perf_counter()
+with torch.no_grad():
+    outputs = program(torch.load(images, map_location="cuda"))
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+mods = sorted(m for m in sys.modules if m.split(".")[0].startswith("uda_poseestimation"))
+if mods:
+    sys.exit(f"imported {mods}")
+torch.save([o.cpu() for o in outputs], out)
+print(json.dumps({"start_s": started - t0, "load_s": t2 - t1, "call_s": t3 - t2}))
+"""
+
+
+def _serve_images(seed, b, device):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.RandomState(seed).rand(
+        b, MAIN_IMAGE, MAIN_IMAGE, 3).astype(np.float32)).to(device)
+
+
+def phase_serving(device, work_dir, checkpoint):
+    """The serving path (``uda_poseestimation_torch/tools/export_inference.py``
+    and ``serve_benchmark.py``) at full width on the card: phase
+    trainer_engine's pose_resnet101 checkpoint (K=21, 256², bf16 teacher)
+    exported through the CLI with ``--selfcheck``; the artifact loaded in a
+    process that imports torch alone and held against this process's call;
+    b = 1, 7 and 64 from one artifact, each held against an eager forward of
+    the same module; then ``serve_benchmark`` on the artifact at b = 1, 32
+    and 64, each between two timings of the eager module (its ``measure``),
+    and the device's and the host's ms a call of both. No kernel of the
+    port may launch. Returns the launches."""
+    import torch
+
+    from uda_poseestimation_torch.tools import export_inference as ei
+    from uda_poseestimation_torch.tools import serve_benchmark as sb
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(work_dir, "serving")
+    os.makedirs(out_dir)
+    artifact = os.path.join(out_dir, "teacher.pt2")
+    child_in = os.path.join(out_dir, "images.pt")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the torch-only process starts first: its start-up overlaps the export
+    child = subprocess.Popen([sys.executable, "-I", "-c", SERVE_CHILD, artifact, child_in,
+                              child_in + ".out"], cwd=out_dir, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _reset_counts()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            export = ei.main([checkpoint, artifact, "--arch", TRAINER_ARCH, "--num-keypoints",
+                              str(MAIN_K), "--image-size", str(MAIN_IMAGE), "--selfcheck"])
+        lines = printed.getvalue().splitlines()
+        if not (any(ln.startswith("exported teacher") for ln in lines)
+                and any(ln.startswith("selfcheck ok:") for ln in lines)):
+            raise AssertionError(f"export CLI printed {lines}")
+        if export["meta"]["device_type"] != device.type or export["meta"]["dtype"] != "bfloat16":
+            raise AssertionError(f"artifact metadata {export['meta']}")
+        cli_s = time.perf_counter() - t0
+
+        images_7 = _serve_images(7, 7, device)
+        torch.save(images_7.cpu(), child_in + ".part")
+        os.replace(child_in + ".part", child_in)  # the child may go on
+        l0 = time.perf_counter()
+        exported, meta = ei.load_artifact(artifact)  # device None: the card
+        load_s = time.perf_counter() - l0
+        program = exported.module()
+        eager = ei.InferenceModel(ei.load_model(checkpoint, TRAINER_ARCH, MAIN_K,
+                                                device=device).requires_grad_(False))
+        batches = {}
+        for b in SERVE_CHECK_BATCHES:
+            x = images_7 if b == 7 else _serve_images(b, b, device)
+            with torch.no_grad():
+                got, want = program(x), eager(x)
+            shapes = [tuple(o.shape) for o in got]
+            if shapes != [(b, MAIN_K, MAIN_HEATMAP, MAIN_HEATMAP), (b, MAIN_K, 2), (b, MAIN_K, 1)]:
+                raise AssertionError(f"b={b}: output shapes {shapes}")
+            if not all(torch.isfinite(o).all() for o in got):
+                raise AssertionError(f"b={b}: non-finite outputs")
+            batches[b] = dict(ei.hold_outputs(got, want, torch.bfloat16),
+                              bit_equal=all(torch.equal(g, w) for g, w in zip(got, want)))
+            if b == 7:
+                in_process = [o.cpu() for o in got]
+        w0 = time.perf_counter()
+        stdout, stderr = child.communicate(timeout=300)
+        child_wait_s = time.perf_counter() - w0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"torch-only serving process: rc {child.returncode}\n{stderr[-3000:]}")
+    child_out = torch.load(child_in + ".out")
+    child_check = dict(ei.hold_outputs(child_out, in_process, torch.bfloat16),
+                       bit_equal=all(torch.equal(g, w) for g, w in zip(child_out, in_process)),
+                       **json.loads(stdout.strip().splitlines()[-1]), waited_s=child_wait_s)
+
+    # the harness on the artifact at each batch, between two eager timings
+    bench = {}
+    for b in SERVE_BATCHES:
+        x = _serve_images(0, b, device)
+        torch.cuda.reset_peak_memory_stats(device)
+        eager_before = sb.measure(eager, x, SERVE_REPS, device)
+        eager_peak = torch.cuda.max_memory_allocated(device)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            record = sb.main(["--artifact", artifact, "--image-size", str(MAIN_IMAGE),
+                              "--batch", str(b), "--reps", str(SERVE_REPS)])
+        if json.loads(printed.getvalue().strip().splitlines()[-1]) != record:
+            raise AssertionError(f"serve_benchmark printed {printed.getvalue()[-500:]}")
+        if record["dtype"] != "bfloat16" or record["device"] != torch.cuda.get_device_name(device):
+            raise AssertionError(f"b={b}: serve_benchmark record {record}")
+        eager_after = sb.measure(eager, x, SERVE_REPS, device)
+        eager_ms = statistics.mean([eager_before["ms_per_batch"], eager_after["ms_per_batch"]])
+        # the device's time a call, and the host's time to enqueue one (median)
+        device_ms, enqueue_ms = {}, {}
+        with torch.no_grad():
+            for name, fn in (("artifact", program), ("eager", eager)):
+                device_ms[name] = cuda_ms(lambda: fn(x), 5, sleep_cycles=SERVE_SLEEP_CYCLES)
+                enqueued = []
+                for _ in range(10):
+                    torch.cuda.synchronize(device)
+                    h = time.perf_counter()
+                    fn(x)
+                    enqueued.append((time.perf_counter() - h) * 1e3)
+                enqueue_ms[name] = statistics.median(enqueued)
+                torch.cuda.synchronize(device)
+        bench[b] = {"artifact": record, "eager_before": eager_before, "eager_after": eager_after,
+                    "eager_peak_memory_bytes": eager_peak, "device_ms": device_ms,
+                    "enqueue_ms": enqueue_ms,
+                    "artifact_over_eager": record["ms_per_batch"] / eager_ms}
+    launches = _read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"kernels launched on the serving path: {launches}")
+    emit({"phase": "serving", "model": TRAINER_ARCH, "k": MAIN_K, "image": MAIN_IMAGE,
+          "dtype": meta["dtype"], "artifact_bytes": export["bytes"],
+          "export_s": export["export_s"], "cli_s": cli_s, "load_s": load_s,
+          "selfcheck": export["selfcheck"], "batches": batches, "torch_only": child_check,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    for b, rec in bench.items():
+        emit({"phase": "serving", "batch": b, "images_per_s": rec["artifact"]["value"],
+              "ms_per_batch": rec["artifact"]["ms_per_batch"],
+              "latency_ms_median": rec["artifact"]["latency_ms_median"],
+              "latency_ms_p90": rec["artifact"]["latency_ms_p90"],
+              "peak_memory_bytes": rec["artifact"]["peak_memory_bytes"],
+              "eager_ms_per_batch": [rec["eager_before"]["ms_per_batch"],
+                                     rec["eager_after"]["ms_per_batch"]],
+              "eager_latency_ms_median": [rec["eager_before"]["latency_ms_median"],
+                                          rec["eager_after"]["latency_ms_median"]],
+              "eager_peak_memory_bytes": rec["eager_peak_memory_bytes"],
+              "device_ms": rec["device_ms"], "enqueue_ms": rec["enqueue_ms"],
+              "artifact_over_eager": rec["artifact_over_eager"]})
+    return launches
 
 
 def blob_frame(rng, h, w, kp):
@@ -4367,6 +4566,9 @@ def main(argv=None) -> int:
                                             work_dir, main_run, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+        serving_launches = timed("serving", phase_serving, device, work_dir, checkpoint)
+        gc.collect()
+        torch.cuda.empty_cache()
         cli_launches, cli_losses = timed("trainer_cli", phase_trainer_cli, device, work_dir,
                                          checkpoint)
         gc.collect()
@@ -4391,6 +4593,7 @@ def main(argv=None) -> int:
                **{f"bundled_{k}": v for k, v in bundled_launches.items()},
                **{f"device_aug_{k}": v for k, v in device_aug_launches.items()},
                **{f"trainer_engine_{k}": v for k, v in engine_launches.items()},
+               "serving": serving_launches,
                **{f"trainer_cli_{k}": v for k, v in (cli_launches or {}).items()},
                **{f"trainer_pairs_{k}": v for k, v in pair_launches.items()},
                **decoder_launches,
