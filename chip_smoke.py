@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Phases, one JSON line each; any failure raises and the script exits non-zero:
+Phases, one JSON line each; any failure raises and the script exits non-zero.
+They run in the order below but for two: variants runs before distributed,
+and trainer_animals runs in a child process (PhaseChild) beside trainer_cli,
+trainer_pairs, decoder and variants; its lines follow variants'. A child
+process writes the fake trees of trainer_pairs, trainer_animals and
+distributed (write_trees) while the first phases use the card.
 
 1. env      the card, its power limit (nvidia-smi) and the TF32 settings,
             which are set off: the f32 comparisons below need full f32.
@@ -120,8 +125,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             s2l, f2r) with their own flags through train_human.main in this
             process at the same width, -j as in trainer_cli, one epoch of 3
             iterations: an adapt epoch each and a pretrain epoch for s2h,
-            on fake trees in each dataset's layout at its frame size that
-            the phase writes (FAKE_TREES); occlusion_warp 3 times an adapt
+            on fake trees in each dataset's layout at its frame size
+            (FAKE_TREES), each validation on the first PAIR_VAL_ITEMS
+            items of its set (the sets' fixed 2000-3200 items took most of
+            the phase); occlusion_warp 3 times an adapt
             run and never in pretraining, finite epoch lines, no worker
             left; one line per run: wall time, dataset construction time,
             first-batch wait, the median Time and Data of iterations 1-2,
@@ -133,16 +140,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             events and peak memory with TF32 off and on, TF32's losses
             held against full float32's; the step's FLOPs and bound), one
             step on the card against the CPU at 64², the AdaIN CLI
-            (uda_poseestimation_torch.adain.train_human) for 40 iterations
+            (uda_poseestimation_torch.adain.train_human) for 20 iterations
             on the fake RHD and H3D trees (finite log lines, 2 PNGs, the
             checkpoint; seconds per iteration and the loaders' wait), and
             the r2h adapt run of 3 iterations with --decoder-name set to
             that checkpoint (occlusion_warp 3 times).
 11. trainer_animals  the two animal lines of ``script`` (train_animal.py,
-            train_animal_other.py) through train_animal.main in this
+            train_animal_other.py) through train_animal.main in its own
             process at the same width, -j as in trainer_cli, on fake
-            synthetic-animal, TigDog and AnimalPose trees that the phase
-            writes (ANIMAL_TREES): the train_animal line adapting (3
+            synthetic-animal, TigDog and AnimalPose trees (ANIMAL_TREES):
+            the train_animal line adapting (3
             iterations), pretraining, bundled with --steps-per-dispatch 4
             (20 iterations on trees of 20 batches a pass,
             ANIMAL_LONG_TREES), and with a decoder that the AdaIN animal
@@ -203,6 +210,18 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
             launches once per adapt step, never in pretraining. One line
             per recipe: PCKs, steps, captures and replays, launches,
             seconds.
+13. variants  the paths of ROADMAP A12b and A14 (phase_variants), every
+            number beside the nvidia-smi line: (a) the AdaIN human CLI
+            through the launcher at one NCCL rank (256², batch 4, 6
+            iterations) against the same CLI without a group in this
+            process, both under deterministic cuDNN (log, PNGs and
+            checkpoint equal bit for bit), and two spawned gloo ranks
+            sharing the card for one SGD decoder step on 2 rows each
+            against the one-process step on 4 rows; meanwhile (b) the
+            losses that no trainer calls and generate_prior_map at b=32,
+            K=21, 64² on the card against the CPU, and (c)
+            tools/profile_step.py for 2 steps at its flagship configuration,
+            printing its top-10 table.
 
 Then each phase's seconds, the kernel table ({"kernels": [...]}, with each
 kernel's launches on every path), the nvidia-smi line, and the
@@ -1773,11 +1792,9 @@ def _pretrain_held_against_eager(device, state, style, build, raw):
 def _children_rss_kb():
     """The resident kB of each of this process's child processes (the
     loader workers), from ``/proc/<pid>/statm``."""
-    import multiprocessing
-
     page = os.sysconf("SC_PAGE_SIZE") // 1024
     out = []
-    for child in multiprocessing.active_children():
+    for child in _stray_children():
         try:
             with open(f"/proc/{child.pid}/statm") as f:
                 fields = f.read().split()
@@ -1805,7 +1822,6 @@ def phase_device_aug(device, work_dir, profile_dir=None):
     --device-aug pretrain epoch with s2t fired: Time and Data medians per
     pass, the first batch's wait, the cache's counts and the parent's and
     workers' RSS. Returns the launches of each path."""
-    import multiprocessing
     import statistics
     import warnings
 
@@ -2006,8 +2022,8 @@ def phase_device_aug(device, work_dir, profile_dir=None):
                 wall = time.perf_counter() - r0
                 launches = _read_counts()
             gc.collect()
-            if multiprocessing.active_children():
-                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            if _stray_children():
+                raise AssertionError(f"run {name} left {_stray_children()}")
             want = dict(dict.fromkeys(_counters(), 0), occlusion_warp=warps)
             if launches != want:
                 raise AssertionError(f"run {name}: launches {launches}, needs {want}")
@@ -2504,7 +2520,6 @@ def phase_trainer_cli(device, work_dir, checkpoint):
     the launches of each run and those two runs' printed losses, or (None,
     None) when Pillow is not installed."""
     import importlib.util
-    import multiprocessing
 
     import torch
 
@@ -2570,8 +2585,8 @@ def phase_trainer_cli(device, work_dir, checkpoint):
                 launches[name] = _read_counts()
                 by_variant = dict(matmul_stats.launches_by_variant)
             gc.collect()
-            if multiprocessing.active_children():
-                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            if _stray_children():
+                raise AssertionError(f"run {name} left {_stray_children()}")
             if launches[name] != want:
                 raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
             if by_variant != dict(dict.fromkeys(VARIANTS, 0), tma=want["matmul_stats"]):
@@ -2603,17 +2618,22 @@ def phase_trainer_cli(device, work_dir, checkpoint):
 
 
 # the fake trees of phase trainer_pairs (PERF.md section 4 states the sizes
-# that no source records): FreiHAND's full index and frame size, Human3.6M's
-# 512² crops, SURREAL's 240² frames, LSP's 2000 images, H3D's square crops
+# that no source records): FreiHAND's frame size, Human3.6M's 512² crops,
+# SURREAL's 240² frames, LSP's image sizes, H3D's square crops. Cut in scale
+# for the script's time limit (PERF.md section 4): SURREAL's test directory
+# to 2000 samples (4000 before), H3D's samples to 1000 (4000) and
+# Human3.6M's to 200 a subject (1000). FreiHAND's 32560-entry index, its
+# test split of 3200, Human3.6M's 3200 test draws and LSP's 2000 images
+# are the datasets' own fixed counts
 FAKE_TREES = {
     "freihand": {"index": 32560, "versions": 4, "frame": 224, "distinct_frames": 16},
-    "h36m": {"per_part": 1000, "parts": (1, 5, 6, 7, 8, 9, 11), "crop": 512,
+    "h36m": {"per_part": 200, "parts": (1, 5, 6, 7, 8, 9, 11), "crop": 512,
              "distinct_frames": 32},
-    "surreal": {"train": 2400, "val": 240, "test": 4000, "frame": 240,
+    "surreal": {"train": 2400, "val": 240, "test": 2000, "frame": 240,
                 "distinct_frames": 32},
     "lsp": {"images": 2000, "height": (140, 260), "width": (100, 260),
             "distinct_frames": 32},
-    "h3d": {"samples": 4000, "crop": 512, "distinct_frames": 32},
+    "h3d": {"samples": 1000, "crop": 512, "distinct_frames": 32},
 }
 
 
@@ -2652,7 +2672,8 @@ def write_fake_freihand(root):
     32560-entry training_{K,mano,xyz}.json (61 MANO parameters an entry;
     hands 0.5-0.7 m from a camera of focal length 450-520 px, so they fill
     most of the 224² frame) and all 130240 image names of the four colour
-    versions, since every name of the 3200-sample test split is read."""
+    versions, since every name of the 3200-sample test split is read (the
+    dataset indexes the full 32560)."""
     import numpy as np
 
     cfg = FAKE_TREES["freihand"]
@@ -2704,8 +2725,8 @@ def write_fake_h36m(root):
 def write_fake_surreal(root):
     """The processed SURREAL layout: ``train/run{0,1,2}``, ``val`` and
     ``test``, each with ``run{0,1,2}.json`` over 240² frames (24 SMPL joints
-    a sample, 3-6 m from the camera); the test directory of 4000 samples,
-    so that its split is 800 of the 3200 it holds at full size (a cut of
+    a sample, 3-6 m from the camera); the test directory of 2000 samples,
+    so that its split is 399 of the 3200 it holds at full size (a cut of
     scale for the script's time limit)."""
     import numpy as np
 
@@ -2776,6 +2797,183 @@ def write_fake_h3d(root):
         for i, name in enumerate(names)])
 
 
+def write_trees(work_dir, record):
+    """Write under ``work_dir`` the fake trees that phases trainer_pairs,
+    trainer_animals and distributed read (the trees those phases wrote
+    themselves before), in that order, and each tree's seconds as JSON to
+    ``record``. Runs in a child process at a low priority (``TreeWriter``)
+    while the first phases use the card."""
+    os.nice(10)
+    seconds = {}
+
+    def write(name, fn, *fn_args):
+        t = time.perf_counter()
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            fn(*fn_args)
+        seconds[name] = time.perf_counter() - t
+
+    for name, fn in (("freihand", write_fake_freihand), ("h36m", write_fake_h36m),
+                     ("surreal", write_fake_surreal), ("lsp", write_fake_lsp),
+                     ("h3d", write_fake_h3d)):
+        write(name, fn, os.path.join(work_dir, name))
+    animals, animals_long = (os.path.join(work_dir, d) for d in ("animals", "animals_long"))
+    write("synthetic", write_fake_synthetic_animals, animals)
+    write("tigdog", write_fake_tigdog, animals)
+    write("animal_pose", write_fake_animal_pose, animals)
+    write("synthetic_long", write_fake_synthetic_animals, animals_long,
+          ANIMAL_LONG_TREES["synthetic"])
+    write("tigdog_long", write_fake_tigdog, animals_long, ANIMAL_LONG_TREES["tigdog"])
+    write("rhd_dist", write_fake_rhd, os.path.join(work_dir, "rhd_dist"))
+    with open(record, "w") as f:
+        json.dump(seconds, f)
+
+
+# the script's own helper processes (TreeWriter, PhaseChild), which the
+# phases' checks for processes left behind by a run pass over
+_HELPERS = set()
+
+
+def _stray_children():
+    """This process's live child processes (loader workers, ranks) other
+    than the script's helpers."""
+    import multiprocessing
+
+    return [p for p in multiprocessing.active_children() if p not in _HELPERS]
+
+
+def _spawn(target, *target_args):
+    """Start ``target(*target_args)`` in a spawned helper process."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("spawn").Process(target=target, args=target_args)
+    proc.start()
+    _HELPERS.add(proc)
+    return proc
+
+
+def _stop(proc):
+    if proc.is_alive():
+        proc.kill()
+    proc.join()
+    _HELPERS.discard(proc)
+
+
+class TreeWriter:
+    """``write_trees`` in a spawned child, started before the kernels are
+    built; ``wait`` joins it (once) and returns each tree's seconds and the
+    seconds the caller waited; ``close`` kills it if it still runs."""
+
+    def __init__(self, work_dir):
+        self.record = os.path.join(work_dir, "trees.json")
+        self.proc = _spawn(write_trees, work_dir, self.record)
+        self.waited_s = None
+
+    def wait(self):
+        if self.waited_s is None:
+            t = time.perf_counter()
+            self.proc.join()
+            self.waited_s = time.perf_counter() - t
+            if self.proc.exitcode != 0:
+                raise AssertionError(f"the tree writer exited {self.proc.exitcode}")
+        with open(self.record) as f:
+            return {"trees_s": json.load(f), "waited_s": self.waited_s}
+
+    def close(self):
+        _stop(self.proc)
+
+
+def _child_phase(phase, work_dir, lines_path, result_path):
+    """The body of a PhaseChild: the card with TF32 off and the port's
+    kernels loaded, as in ``main``, then ``phase(device, work_dir)``, its
+    lines written to ``lines_path`` and its result and seconds as JSON to
+    ``result_path``."""
+    import multiprocessing
+
+    import torch
+
+    from uda_poseestimation_torch import _build
+
+    # a spawned process spawns its own children too; the phase's loader
+    # workers fork, as in ``main``'s process
+    multiprocessing.set_start_method("fork", force=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for name in _build.KERNELS:
+        _build.load(name)
+    t0 = time.perf_counter()
+    with open(lines_path, "w") as out, contextlib.redirect_stdout(out):
+        result = phase(torch.device("cuda", 0), work_dir)
+    with open(result_path, "w") as f:
+        json.dump({"result": result, "seconds": time.perf_counter() - t0}, f)
+
+
+class PhaseChild:
+    """A phase (``phase(device, work_dir)``) run in a spawned child process
+    while this process runs the next ones. The child loads the kernels that
+    this process built and counts their launches in its own process.
+    ``join`` waits for it, prints its lines, and returns its result, its
+    seconds and the seconds the caller waited; ``close`` kills it if it
+    still runs."""
+
+    def __init__(self, phase, work_dir):
+        self.name = phase.__name__
+        self.lines = os.path.join(work_dir, f"{self.name}.out")
+        self.record = os.path.join(work_dir, f"{self.name}.json")
+        self.proc = _spawn(_child_phase, phase, work_dir, self.lines, self.record)
+
+    def join(self):
+        t = time.perf_counter()
+        self.proc.join()
+        waited_s = time.perf_counter() - t
+        _HELPERS.discard(self.proc)
+        with open(self.lines) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+        if self.proc.exitcode != 0:
+            raise AssertionError(f"{self.name} exited {self.proc.exitcode} in its process")
+        with open(self.record) as f:
+            record = json.load(f)
+        return record["result"], record["seconds"], waited_s
+
+    def close(self):
+        _stop(self.proc)
+
+
+# the items of each evaluation set that phase trainer_pairs validates on:
+# the datasets fix 2000-3200 items, which took most of the phase, while the
+# validation path is the same for any count
+PAIR_VAL_ITEMS = 2 * MAIN_B
+
+
+class _Head:
+    """The first ``n`` items of ``dataset``, whose other attributes
+    (num_keypoints, group_accuracy) it passes through."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, min(n, len(dataset))
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return self.dataset[i]
+
+    def __getattr__(self, name):
+        if name == "dataset":
+            raise AttributeError(name)
+        return getattr(self.dataset, name)
+
+
+def head_loader(loader, n):
+    """``loader`` over the first ``n`` items of its dataset, with its batch
+    size, workers and page-locking."""
+    from uda_poseestimation_torch.data.loader import make_loader
+
+    return make_loader(_Head(loader.dataset, n), loader.batch_size,
+                       num_workers=loader.num_workers, pin_memory=loader.pin_memory)
+
+
 # the four train_human.py lines of ``script``, in its order, and each run of
 # phase trainer_pairs: (name, pair, extra flags, occlusion_warp launches)
 SCRIPT_PAIRS = ("f2r", "s2h", "s2l", "r2h")
@@ -2808,20 +3006,20 @@ def _rss_kb():
             "peak": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}
 
 
-def phase_trainer_pairs(device, work_dir):
+def phase_trainer_pairs(device, work_dir, trees):
     """The four human lines of ``script`` through the port's
     ``train_human.main`` in this process, each with its own flags and
-    datasets on fake trees in their layouts (``write_fake_*``), random
-    style weights, pose_resnet101 b=32 at 256²/64², -j as in trainer_cli,
-    one epoch of 3 iterations: an adapt epoch for r2h, s2h, s2l and f2r,
-    and a pretrain epoch for s2h. Each run's launches (occlusion_warp 3 an
-    adapt epoch, none in pretraining), finite epoch lines and no worker
-    left are required; each run prints its wall time, dataset construction
-    time (build_data) and the parent's RSS after it and at the end, its
-    first-batch wait, the median Time and Data of iterations 1-2, and each
-    validation's seconds and items. Returns the launches of each run."""
-    import multiprocessing
-
+    datasets on fake trees in their layouts (``write_fake_*``, written by
+    ``trees``, a TreeWriter), random style weights, pose_resnet101 b=32 at
+    256²/64², -j as in trainer_cli, one epoch of 3 iterations: an adapt
+    epoch for r2h, s2h, s2l and f2r, and a pretrain epoch for s2h; each
+    validation reads the first PAIR_VAL_ITEMS items of its set. Each run's
+    launches (occlusion_warp 3 an adapt epoch, none in pretraining), finite
+    epoch lines and no worker left are required; each run prints its wall
+    time, dataset construction time (build_data) and the parent's RSS after
+    it and at the end, its first-batch wait, the median Time and Data of
+    iterations 1-2, and each validation's seconds and items. Returns the
+    launches of each run."""
     import torch
 
     from uda_poseestimation_torch import train_human
@@ -2831,10 +3029,7 @@ def phase_trainer_pairs(device, work_dir):
              for name in ("rhd", "freihand", "h36m", "surreal", "lsp", "h3d")}
     if not os.path.isdir(roots["rhd"]):  # phase trainer_cli's tree otherwise
         write_fake_rhd(roots["rhd"])
-    for name, write in (("freihand", write_fake_freihand), ("h36m", write_fake_h36m),
-                        ("surreal", write_fake_surreal), ("lsp", write_fake_lsp),
-                        ("h3d", write_fake_h3d)):
-        write(roots[name])
+    written = trees.wait()
     write_style_weights(work_dir)
     fixture_s = time.perf_counter() - t0
     root_of = {"RenderedHandPose": "rhd", "FreiHand": "freihand", "Human36M": "h36m",
@@ -2853,6 +3048,7 @@ def phase_trainer_pairs(device, work_dir):
 
     def timed_validate(eval_step, model, loader, args, visualize=None):
         t = time.perf_counter()
+        loader = head_loader(loader, PAIR_VAL_ITEMS)
         out = run_validate(eval_step, model, loader, args, visualize=visualize)
         record.setdefault("validation", []).append(
             {"s": time.perf_counter() - t, "items": len(loader.dataset)})
@@ -2882,8 +3078,8 @@ def phase_trainer_pairs(device, work_dir):
                 wall = time.perf_counter() - r0
                 launches[name] = _read_counts()
             gc.collect()
-            if multiprocessing.active_children():
-                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            if _stray_children():
+                raise AssertionError(f"run {name} left {_stray_children()}")
             want = dict(none, occlusion_warp=warps)
             if launches[name] != want:
                 raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
@@ -2910,7 +3106,8 @@ def phase_trainer_pairs(device, work_dir):
         if fuse_env is not None:
             os.environ["UDA_BN_FUSE"] = fuse_env
     emit({"phase": "trainer_pairs", "workers": workers, "fake_trees": FAKE_TREES,
-          "fixture_s": fixture_s, "seconds": time.perf_counter() - t0})
+          "validation_items": PAIR_VAL_ITEMS, "fixture_s": fixture_s,
+          "tree_writer": written, "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -2918,7 +3115,7 @@ def phase_trainer_pairs(device, work_dir):
 # loads 4 a batch whatever --batch_size says), full width
 DECODER_B = 4
 DECODER_STEPS = 20
-DECODER_CLI_ITERS = 40
+DECODER_CLI_ITERS = 20
 # TF32 tensor-core peak of the H100 SXM (dense; NVIDIA data sheet)
 TF32_FLOPS = 495e12
 
@@ -3064,7 +3261,7 @@ def phase_decoder(device, work_dir):
     3. the CLI (``uda_poseestimation_torch.adain.train_human.main``) in this
        process on fake RHD and H3D trees, RenderedHandPose -> Hand3DStudio_mt
        with the r2h line's augmentation flags, 256², DECODER_CLI_ITERS
-       iterations, a checkpoint and a PNG every 20, at PyTorch's default
+       iterations, a checkpoint and a PNG every 10, at PyTorch's default
        TF32 settings (cuDNN's on): the log's finite lines, the PNGs and the
        checkpoint, the seconds per iteration (between step calls) and the
        time spent waiting for the loaders' batches;
@@ -3074,7 +3271,6 @@ def phase_decoder(device, work_dir):
 
     Returns the launches of parts 1, 3 and 4."""
     import copy
-    import multiprocessing
 
     import torch
 
@@ -3148,8 +3344,8 @@ def phase_decoder(device, work_dir):
         ["--source", "RenderedHandPose", "--target", "Hand3DStudio_mt",
          "--source_root", roots["rhd"], "--target_root", roots["h3d"],
          "--vgg", "saved_models/vgg_normalised.pth", "--image-size", str(MAIN_IMAGE),
-         "--max_iter", str(DECODER_CLI_ITERS), "--save_model_interval", "20",
-         "--log_img_interval", "20", "--exp_name", exp, "--device", str(device)]
+         "--max_iter", str(DECODER_CLI_ITERS), "--save_model_interval", "10",
+         "--log_img_interval", "10", "--exp_name", exp, "--device", str(device)]
         + _cli_aug_flags())
     step_stamps, waits = [], []
     make_step, forever = adain_engine.make_decoder_step, adain_cli.ForeverDataIterator
@@ -3180,14 +3376,14 @@ def phase_decoder(device, work_dir):
             wall = time.perf_counter() - r0
             launches["decoder_cli"] = _read_counts()
         gc.collect()
-        if multiprocessing.active_children():
-            raise AssertionError(f"the decoder CLI left {multiprocessing.active_children()}")
+        if _stray_children():
+            raise AssertionError(f"the decoder CLI left {_stray_children()}")
         root = os.path.join("logs", exp)
         with open(os.path.join(root, "log_" + exp + ".txt")) as f:
             lines = _finite_lines(f.read(), ("iter: ",))
         pngs = sorted(os.listdir(os.path.join(root, "save_imgs", "save_img_" + exp)))
         checkpoint = os.path.join(root, "saved_model", "decoder_" + exp + ".pth.tar")
-        if (len(lines) != DECODER_CLI_ITERS or pngs != ["0.png", "20.png"]
+        if (len(lines) != DECODER_CLI_ITERS or pngs != ["0.png", "10.png"]
                 or not os.path.isfile(checkpoint) or "WARNING" in printed.getvalue()
                 or launches["decoder_cli"] != none):
             raise AssertionError(f"decoder CLI: {len(lines)} lines, PNGs {pngs}, launches "
@@ -3222,8 +3418,8 @@ def phase_decoder(device, work_dir):
             chain_wall = time.perf_counter() - r0
             launches["decoder_chain"] = _read_counts()
         gc.collect()
-        if multiprocessing.active_children():
-            raise AssertionError(f"the chained run left {multiprocessing.active_children()}")
+        if _stray_children():
+            raise AssertionError(f"the chained run left {_stray_children()}")
         if launches["decoder_chain"] != dict(none, occlusion_warp=3):
             raise AssertionError(f"chained run: launches {launches['decoder_chain']}")
         log_dir = f"logs/decoder_chain_{TRAINER_ARCH}"
@@ -3684,7 +3880,8 @@ def phase_trainer_animals(device, work_dir):
     ``train_animal.main`` in this process (``train_animal_other`` runs the
     same main with dog and sheep), on fake trees in the datasets' layouts
     (``write_fake_synthetic_animals``, ``write_fake_tigdog``,
-    ``write_fake_animal_pose``) with random style weights, pose_resnet101
+    ``write_fake_animal_pose``, which ``write_trees`` wrote) with random
+    style weights, pose_resnet101
     b=32 at 256²/64², -j as in trainer_cli, one epoch (ANIMAL_RUNS): the
     train_animal line adapting, pretraining, bundled (--steps-per-dispatch
     4, 20 iterations on ANIMAL_LONG_TREES: the other trees' passes of 2-3
@@ -3705,8 +3902,6 @@ def phase_trainer_animals(device, work_dir):
     read beside its host-path twin (ANIMAL_HOST_TWIN); before the runs,
     ``animal_item_ms`` times each training set's items on the host and
     ``animal_views_on_card`` checks and times the animal view builder."""
-    import multiprocessing
-
     import torch
 
     from uda_poseestimation_torch import train_animal
@@ -3714,12 +3909,7 @@ def phase_trainer_animals(device, work_dir):
 
     t0 = time.perf_counter()
     root = os.path.join(work_dir, "animals")
-    write_fake_synthetic_animals(root)
-    write_fake_tigdog(root)
-    write_fake_animal_pose(root)
     long_root = os.path.join(work_dir, "animals_long")
-    write_fake_synthetic_animals(long_root, ANIMAL_LONG_TREES["synthetic"])
-    write_fake_tigdog(long_root, ANIMAL_LONG_TREES["tigdog"])
     write_style_weights(work_dir)
     fixture_s = time.perf_counter() - t0
     image_path = os.path.join(root, "animal_data")
@@ -3867,8 +4057,8 @@ def phase_trainer_animals(device, work_dir):
                         raise AssertionError(f"run {name}: cache {run['decode_cache']}")
             record.clear()
             gc.collect()
-            if multiprocessing.active_children():
-                raise AssertionError(f"run {name} left {multiprocessing.active_children()}")
+            if _stray_children():
+                raise AssertionError(f"run {name} left {_stray_children()}")
             want = dict(none, occlusion_warp=int(fill.get(warps, warps)))
             if launches[name] != want:
                 raise AssertionError(f"run {name}: launches {launches[name]}, needs {want}")
@@ -4268,14 +4458,14 @@ def _nccl_w1_ms(device):
     return out, launches
 
 
-def phase_distributed(device, work_dir, cli_losses):
+def phase_distributed(device, work_dir, cli_losses, trees):
     """``--dist-*`` on the card (parallel/distributed.py):
 
     (a) the train_human CLI through the port's launcher at -n 1 (one NCCL
         rank, ``trainer_child``), phase trainer_cli's two adapt runs
         (CLI_ADAPT_RUNS: unbundled and with --steps-per-dispatch BUNDLE_N,
         the step's collectives captured in the CUDA graphs) on a fresh copy
-        of its RHD tree with its flags, both at once: under deterministic
+        of its RHD tree (written by ``trees``, a TreeWriter) with its flags, both at once: under deterministic
         cuDNN with TF32 off the printed losses must equal that phase's runs
         without --dist-* (``cli_losses``; at one rank the collectives are
         identities and the data order, control stream and BatchNorm those
@@ -4317,7 +4507,7 @@ def phase_distributed(device, work_dir, cli_losses):
         raise AssertionError("phase distributed needs phase trainer_cli's adapt runs")
     t0 = time.perf_counter()
     root = os.path.join(work_dir, "rhd_dist")
-    write_fake_rhd(root)  # the tree trainer_cli's adapt runs read, before its lengthening
+    trees.wait()  # root: the tree trainer_cli's adapt runs read, before its lengthening
     none = dict.fromkeys(_counters(), 0)
     want = dict(none, occlusion_warp=CLI_ITERS)
     extra = dict(CLI_ADAPT_RUNS)
@@ -4493,6 +4683,323 @@ def phase_learning(device):
     return launches
 
 
+# phase variants: the AdaIN decoder trainer across processes (A12b) and the
+# leftovers that no trainer calls (A14)
+VARIANT_DECODER_ITERS = 6
+VARIANT_DECODER_RANKS = 2
+VARIANT_DECODER_SGD_LR = 0.1
+# card against CPU, float32: exp, log and sums in other orders; CORAL's
+# covariance difference cancels, so 1e-4
+VARIANT_LOSS_TOL, VARIANT_CORAL_TOL = 1e-5, 1e-4
+# CORAL's covariance at 64² would be (21*64*64)² = 7.4e9 entries: the loss
+# runs with its own bilinear downsample by 4 (21*16*16 features)
+VARIANT_CORAL_DOWNSAMPLE = 4
+
+
+def decoder_child():
+    """A decoder-trainer process of phase variants: ``python3 -c "import
+    chip_smoke; chip_smoke.decoder_child()" COUNTS ARGV...`` runs the port's
+    AdaIN human CLI on ARGV (the launcher appends its --dist-* flags) with
+    TF32 off under deterministic cuDNN, and writes the kernels' launches to
+    COUNTS.rank<id>."""
+    import torch
+
+    from uda_poseestimation_torch.adain import train_human as adain_cli
+
+    counts_path, argv = sys.argv[1], sys.argv[2:]
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    args = adain_cli.build_parser().parse_args(argv)
+    _reset_counts()
+    with _deterministic():
+        adain_cli.main(args)
+    with open(f"{counts_path}.rank{args.dist_process_id}", "w") as f:
+        json.dump({"launches": _read_counts()}, f)
+
+
+def _decoder_sgd_step(device, size, rows=slice(None)):
+    """One decoder step (``make_decoder_step`` with SGD) of phase decoder's
+    net and images (b=4, ``size``², seeds 0) on ``rows``: the losses, g_t
+    and the decoder's state after it, on the CPU."""
+    import torch
+
+    from uda_poseestimation_torch.adain_engine import make_decoder_step
+
+    net = decoder_net(0, device)
+    content, style = decoder_images(0, DECODER_B, size, device)
+    step, _ = make_decoder_step(net, 1.0, 1.0, VARIANT_DECODER_SGD_LR, optimizer=torch.optim.SGD(
+        net.decoder.parameters(), lr=VARIANT_DECODER_SGD_LR))
+    with _deterministic():
+        *losses, g_t = step(content[rows], style[rows])
+    return {"losses": torch.stack(losses).cpu(), "g_t": g_t.cpu(),
+            "decoder": {k: v.detach().cpu().clone() for k, v in net.decoder.state_dict().items()}}
+
+
+def _decoder_gloo_rank(rank, work_dir, device_type, size):
+    """A rank of part (a2): joins a gloo group (on cuda:0 for a CUDA run),
+    runs its rows of ``_decoder_sgd_step`` and saves it to
+    variants_rank<r>.pt."""
+    import torch
+
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    device = dist.initialize("file://" + os.path.join(work_dir, "variants_rendezvous"),
+                             VARIANT_DECODER_RANKS, rank, device=device_type,
+                             backend="gloo", timeout_s=300)
+    try:
+        _reset_counts()
+        out = _decoder_sgd_step(device, size, dist.local_rows(DECODER_B))
+        out["launches"] = _read_counts()
+        torch.save(out, os.path.join(work_dir, f"variants_rank{rank}.pt"))
+    finally:
+        dist.shutdown()
+
+
+def _decoder_cli_args(work_dir, exp, device):
+    """The AdaIN human CLI on phase decoder's fake RHD and H3D trees at
+    256² (its batch of 4), VARIANT_DECODER_ITERS iterations, a PNG and a
+    checkpoint every 3."""
+    return ["--source", "RenderedHandPose", "--target", "Hand3DStudio_mt",
+            "--source_root", os.path.join(work_dir, "rhd"),
+            "--target_root", os.path.join(work_dir, "h3d"),
+            "--vgg", os.path.join(work_dir, "saved_models", "vgg_normalised.pth"),
+            "--image-size", str(MAIN_IMAGE), "--max_iter", str(VARIANT_DECODER_ITERS),
+            "--save_model_interval", "3", "--log_img_interval", "3", "--exp_name", exp,
+            "--device", str(device)] + _cli_aug_flags()
+
+
+def _decoder_run_files(run_dir, exp):
+    """A decoder CLI run's log text, PNG bytes and checkpoint."""
+    import torch
+
+    root = os.path.join(run_dir, "logs", exp)
+    with open(os.path.join(root, f"log_{exp}.txt")) as f:
+        log = f.read()
+    png_dir = os.path.join(root, "save_imgs", f"save_img_{exp}")
+    pngs = {}
+    for name in sorted(os.listdir(png_dir)):
+        with open(os.path.join(png_dir, name), "rb") as f:
+            pngs[name] = f.read()
+    ckpt = torch.load(os.path.join(root, "saved_model", f"decoder_{exp}.pth.tar"),
+                      weights_only=True)
+    return log, pngs, ckpt
+
+
+def _variants_decoder_ranks(device, work_dir, meanwhile):
+    """Part (a), A12b: (a1) the human decoder CLI through the launcher at
+    one NCCL rank (``decoder_child``) and, meanwhile, the same CLI in this
+    process without a group, torch's generator seeded 0 as a group seeds
+    it, both under deterministic cuDNN with TF32 off: the log, the PNGs and
+    the checkpoint equal bit for bit (at one rank the gradient all-reduce is
+    an identity); (a2) VARIANT_DECODER_RANKS spawned ranks sharing cuda:0
+    over gloo, one SGD decoder step on their rows of the b=4 batch, against
+    the one-process step on the 4 rows: the ranks' states bit-equal, the
+    global losses within 1e-5, the update within 1e-4 of each tensor's
+    largest entry, each rank's g_t rows within 1e-4 of the largest value
+    (cuDNN picks its algorithms per batch size). ``meanwhile()`` runs in
+    this process after its own half, while the other processes finish.
+    Returns its record, the launches of each path and what ``meanwhile``
+    returned."""
+    import multiprocessing
+
+    import torch
+
+    from uda_poseestimation_torch.adain import train_human as adain_cli
+
+    t0 = time.perf_counter()
+    write_style_weights(work_dir)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    nccl_dir, one_dir = (os.path.join(work_dir, d) for d in ("variants_nccl", "variants_one"))
+    for d in (nccl_dir, one_dir):
+        os.makedirs(d)
+    out_path = os.path.join(work_dir, "variants_nccl.out")
+    counts = os.path.join(work_dir, "variants_counts")
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=_decoder_gloo_rank,
+                         args=(r, work_dir, device.type, MAIN_IMAGE))
+             for r in range(VARIANT_DECODER_RANKS)]
+    launches = {}
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "uda_poseestimation_torch.tools.launch_distributed",
+             "-n", "1", "--", sys.executable, "-c",
+             "import chip_smoke; chip_smoke.decoder_child()", counts,
+             *_decoder_cli_args(work_dir, "w1", device)],
+            cwd=nccl_dir, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        for p in ranks:
+            p.start()
+        cwd = os.getcwd()
+        os.chdir(one_dir)
+        try:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed), _deterministic():
+                _reset_counts()
+                torch.manual_seed(0)
+                adain_cli.main(adain_cli.build_parser().parse_args(
+                    _decoder_cli_args(work_dir, "w1", device)))
+                torch.cuda.synchronize()
+                launches["decoder_one_process"] = _read_counts()
+        finally:
+            os.chdir(cwd)
+        _reset_counts()
+        ref = _decoder_sgd_step(device, MAIN_IMAGE)
+        launches["decoder_reference_step"] = _read_counts()
+        other = meanwhile()
+        proc.wait(timeout=600)
+        for p in ranks:
+            p.join(600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    with open(out_path) as f:
+        child_out = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"decoder CLI at one NCCL rank exited {proc.returncode}: "
+                             f"{child_out[-3000:]}")
+    with open(counts + ".rank0") as f:
+        launches["decoder_nccl_w1"] = json.load(f)["launches"]
+    got, want = _decoder_run_files(nccl_dir, "w1"), _decoder_run_files(one_dir, "w1")
+    lines = got[0].splitlines()
+    w1 = {"log_equal": got[0] == want[0], "pngs": sorted(got[1]),
+          "pngs_equal": got[1] == want[1],
+          "checkpoint_equal": list(got[2]) == list(want[2])
+          and all(torch.equal(got[2][k], want[2][k]) for k in want[2]),
+          "log": [lines[0], lines[-1]], "lines": len(lines),
+          "sharded_message": "sharded over" in child_out}
+    if not (w1["log_equal"] and w1["pngs_equal"] and w1["checkpoint_equal"]
+            and w1["lines"] == VARIANT_DECODER_ITERS and w1["pngs"] == ["0.png", "3.png"]
+            and not w1["sharded_message"]):
+        raise AssertionError(f"decoder CLI at one NCCL rank against no group: {w1}\n"
+                             f"{got[0]}\n{want[0]}")
+    _finite_lines(got[0], ("iter: ",))
+    if [p.exitcode for p in ranks] != [0] * VARIANT_DECODER_RANKS:
+        raise AssertionError(f"decoder gloo ranks exited {[p.exitcode for p in ranks]}")
+    outs = []
+    for r in range(VARIANT_DECODER_RANKS):
+        path = os.path.join(work_dir, f"variants_rank{r}.pt")
+        outs.append(torch.load(path, weights_only=False))
+        os.remove(path)
+        launches[f"decoder_gloo_rank{r}"] = outs[-1].pop("launches")
+    ranks_equal = all(torch.equal(outs[0]["decoder"][k], o["decoder"][k])
+                      for o in outs[1:] for k in ref["decoder"])
+    dec0 = decoder_net(0, "cpu").decoder.state_dict()
+    upd_err = max(_rel_max(outs[0]["decoder"][k] - dec0[k], ref["decoder"][k] - dec0[k])
+                  for k in ref["decoder"])
+    gloo = {"ranks": VARIANT_DECODER_RANKS, "rows_each": DECODER_B // VARIANT_DECODER_RANKS,
+            "ranks_bit_equal": ranks_equal,
+            "losses": outs[0]["losses"].tolist(), "losses_one_process": ref["losses"].tolist(),
+            "losses_rel_err": _rel_max(outs[0]["losses"], ref["losses"]),
+            "update_rel_err": upd_err,
+            "g_t_rel_err": _rel_max(torch.cat([o["g_t"] for o in outs]), ref["g_t"])}
+    none = dict.fromkeys(_counters(), 0)
+    if not (ranks_equal and gloo["losses_rel_err"] <= 1e-5 and upd_err <= 1e-4
+            and gloo["g_t_rel_err"] <= 1e-4 and all(v == none for v in launches.values())):
+        raise AssertionError(f"decoder gloo ranks against one process: {gloo}, {launches}")
+    return {"nccl_w1": w1, "gloo": gloo, "seconds": time.perf_counter() - t0}, launches, other
+
+
+def _variants_losses(device):
+    """Part (b): the losses that no trainer calls and generate_prior_map on
+    the card against the CPU at b=32, K=21, 64² from one numpy seed (CORAL
+    at its downsample VARIANT_CORAL_DOWNSAMPLE): each within
+    VARIANT_LOSS_TOL (CORAL VARIANT_CORAL_TOL) of the largest CPU value;
+    cons_kl_loss finite (the JAX package's guard)."""
+    import numpy as np
+    import torch
+
+    from uda_poseestimation_torch.models import loss
+    from uda_poseestimation_torch.ops.heatmap import generate_prior_map
+
+    rng = np.random.RandomState(11)
+    shape = (MAIN_B, MAIN_K, MAIN_HEATMAP, MAIN_HEATMAP)
+    host = {"y": rng.randn(*shape).astype(np.float32),
+            "t": rng.rand(*shape).astype(np.float32),
+            "w": rng.rand(MAIN_B, MAIN_K, 1).astype(np.float32),
+            "valid": rng.rand(MAIN_B) > 0.3, "mask": rng.rand(MAIN_B, MAIN_K) > 0.5,
+            "mean": (rng.rand(MAIN_K, MAIN_K) * 20).astype(np.float32),
+            "std": (rng.rand(MAIN_K, MAIN_K) * 4).astype(np.float32)}
+
+    def evaluate(dev):
+        a = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        return {
+            "joints_kl_loss": loss.joints_kl_loss(a["y"], a["t"], a["w"]),
+            "ent_loss": loss.ent_loss(a["y"]),
+            "ent_loss_threshold": loss.ent_loss(a["y"], threshold=0.995),
+            "cons_softmax_loss": loss.cons_softmax_loss(a["y"], a["t"], a["valid"], a["mask"]),
+            "cons_kl_loss": loss.cons_kl_loss(a["y"], a["t"], a["valid"], a["mask"]),
+            "coral_loss": loss.coral_loss(a["y"], a["t"], VARIANT_CORAL_DOWNSAMPLE),
+            "prior_map": generate_prior_map(a["mean"], a["std"], a["y"]),
+            "prior_map_v3": generate_prior_map(a["mean"], a["std"], a["y"], v3=True)}
+
+    _reset_counts()
+    card = {k: v.cpu() for k, v in evaluate(device).items()}
+    launches = _read_counts()
+    cpu = evaluate(torch.device("cpu"))
+    err = {k: _rel_max(card[k], cpu[k]) for k in cpu}
+    record = {"shape": list(shape), "rel_err": err,
+              "values": {k: float(v) for k, v in cpu.items() if v.dim() == 0},
+              "coral_downsample": VARIANT_CORAL_DOWNSAMPLE, "launches": launches}
+    bad = {k: v for k, v in err.items()
+           if not v <= (VARIANT_CORAL_TOL if k == "coral_loss" else VARIANT_LOSS_TOL)}
+    if bad or not all(bool(torch.isfinite(v).all()) for v in card.values()) \
+            or launches != dict.fromkeys(_counters(), 0):
+        raise AssertionError(f"losses card against CPU: {bad}, {record}")
+    return record, launches
+
+
+def phase_variants(device, work_dir):
+    """The paths of ROADMAP A12b and A14 (the module docstring's phase
+    13): (a) the AdaIN decoder trainer across processes, (b) the losses
+    that no trainer calls and the prior map, (c) tools/profile_step.py for
+    2 steps at its flagship configuration, printing its top-10 table. (b)
+    and (c) run while (a)'s processes finish. Returns the launches of each
+    path."""
+    import torch
+
+    from uda_poseestimation_torch.tools import profile_step
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+
+    def losses_and_profile():
+        launches = {}
+        losses, launches["losses_and_prior_map"] = _variants_losses(device)
+        emit({"phase": "variants", "part": "losses", **losses, "nvidia_smi": smi})
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _reset_counts()
+        out_dir = os.path.join(work_dir, "profile_step")
+        profiled = profile_step.run_trace(out_dir, 2, device=device)
+        torch.cuda.synchronize()
+        launches["profile_step"] = _read_counts()
+        top = profile_step.parse_trace(out_dir, top=10)
+        if (launches["profile_step"] != dict(dict.fromkeys(_counters(), 0), occlusion_warp=3)
+                or not top or not any(r["ms_per_step"] > 0 for r in top)):
+            raise AssertionError(f"profile_step: launches {launches['profile_step']}, "
+                                 f"top {top}")
+        emit({"phase": "variants", "part": "profile_step", "steps": profiled["steps"],
+              "wall_ms_per_step_profiled": profiled["wall_ms_per_step"], "top10": top,
+              "launches": launches["profile_step"], "seconds": time.perf_counter() - t1,
+              "nvidia_smi": smi})
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+
+    decoder, launches, other = _variants_decoder_ranks(device, work_dir, losses_and_profile)
+    emit({"phase": "variants", "part": "decoder_ranks", **decoder, "launches": launches,
+          "nvidia_smi": smi})
+    launches.update(other)
+    emit({"phase": "variants", "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -4521,40 +5028,43 @@ def main(argv=None) -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
-    t0 = time.perf_counter()
-    paths = _build.build(*_build.KERNELS)
-    for name in _build.KERNELS:
-        _build.load(name)
-    emit({"phase": "build", "kernels": list(_build.KERNELS),
-          "seconds": time.perf_counter() - t0,
-          "libraries": [os.path.relpath(p, REPO) for p in paths]})
+    # the phases' files (fixtures, weights, logs, checkpoints) live in a
+    # directory of the checkout that is removed afterwards; a child writes
+    # the largest fake trees there while the first phases use the card
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as work_dir, \
+            contextlib.closing(TreeWriter(work_dir)) as trees, \
+            contextlib.ExitStack() as helpers:
+        t0 = time.perf_counter()
+        paths = _build.build(*_build.KERNELS)
+        for name in _build.KERNELS:
+            _build.load(name)
+        emit({"phase": "build", "kernels": list(_build.KERNELS),
+              "seconds": time.perf_counter() - t0,
+              "libraries": [os.path.relpath(p, REPO) for p in paths]})
 
-    from uda_poseestimation_torch.models.resnet import fused_gemm_shapes, resnet101
+        from uda_poseestimation_torch.models.resnet import fused_gemm_shapes, resnet101
 
-    seconds = {"build": time.perf_counter() - t0}
+        seconds = {"build": time.perf_counter() - t0}
 
-    def timed(name, fn, *fn_args, **fn_kwargs):
-        t = time.perf_counter()
-        out = fn(*fn_args, **fn_kwargs)
-        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
-        return out
+        def timed(name, fn, *fn_args, **fn_kwargs):
+            t = time.perf_counter()
+            out = fn(*fn_args, **fn_kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            return out
 
-    shapes = fused_gemm_shapes(resnet101(fuse_bn=True), MAIN_B, 256)
-    rows = {"occlusion_warp": timed("kernel", phase_kernel_occlusion_warp, device),
-            "matmul_stats": timed("kernel", phase_kernel_matmul_stats, device, shapes),
-            "warp_gather": timed("kernel", phase_kernel_warp_gather, device)}
-    timed("parity", phase_parity, device)
-    timed("parity", phase_parity, device, fuse_bn=True)
-    main_run = timed("main", phase_main, device, args.profile)
-    gc.collect()
-    torch.cuda.empty_cache()
-    fused_run = timed("main_bn_fuse", phase_main, device, args.profile, fuse_bn=True,
-                      unfused=main_run)
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the later phases' files (fixture, weights, logs, checkpoints) live in a
-    # directory of the checkout that is removed afterwards
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as work_dir:
+        shapes = fused_gemm_shapes(resnet101(fuse_bn=True), MAIN_B, 256)
+        rows = {"occlusion_warp": timed("kernel", phase_kernel_occlusion_warp, device),
+                "matmul_stats": timed("kernel", phase_kernel_matmul_stats, device, shapes),
+                "warp_gather": timed("kernel", phase_kernel_warp_gather, device)}
+        timed("parity", phase_parity, device)
+        timed("parity", phase_parity, device, fuse_bn=True)
+        main_run = timed("main", phase_main, device, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_run = timed("main_bn_fuse", phase_main, device, args.profile, fuse_bn=True,
+                          unfused=main_run)
+        gc.collect()
+        torch.cuda.empty_cache()
         bundled_launches = timed("bundled", phase_bundled, device, work_dir, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4569,20 +5079,31 @@ def main(argv=None) -> int:
         serving_launches = timed("serving", phase_serving, device, work_dir, checkpoint)
         gc.collect()
         torch.cuda.empty_cache()
+        # phase trainer_animals runs in a child process beside the phases
+        # from trainer_cli to variants: its runs wait mostly on their host
+        # loaders and this process's on theirs
+        trees.wait()
+        write_style_weights(work_dir)
+        animals = helpers.enter_context(contextlib.closing(
+            PhaseChild(phase_trainer_animals, work_dir)))
         cli_launches, cli_losses = timed("trainer_cli", phase_trainer_cli, device, work_dir,
                                          checkpoint)
         gc.collect()
         torch.cuda.empty_cache()
-        pair_launches = timed("trainer_pairs", phase_trainer_pairs, device, work_dir)
+        pair_launches = timed("trainer_pairs", phase_trainer_pairs, device, work_dir,
+                              trees)
         gc.collect()
         torch.cuda.empty_cache()
         decoder_launches = timed("decoder", phase_decoder, device, work_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        animal_launches = timed("trainer_animals", phase_trainer_animals, device, work_dir)
+        variant_launches = timed("variants", phase_variants, device, work_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        dist_launches = timed("distributed", phase_distributed, device, work_dir, cli_losses)
+        animal_launches, seconds["trainer_animals"], seconds["trainer_animals_waited"] = \
+            animals.join()
+        dist_launches = timed("distributed", phase_distributed, device, work_dir,
+                              cli_losses, trees)
     gc.collect()
     torch.cuda.empty_cache()
     learning_launches = timed("learning", phase_learning, device)
@@ -4599,6 +5120,7 @@ def main(argv=None) -> int:
                **decoder_launches,
                **{f"trainer_animals_{k}": v for k, v in animal_launches.items()},
                **{f"distributed_{k}": v for k, v in dist_launches.items()},
+               **{f"variants_{k}": v for k, v in variant_launches.items()},
                **learning_launches}
     for name, run in (("occlusion_warp", main_run), ("matmul_stats", fused_run),
                       ("warp_gather", main_run)):

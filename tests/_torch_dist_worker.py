@@ -1,4 +1,5 @@
-"""The rank processes of tests/test_torch_distributed.py.
+"""The rank processes of tests/test_torch_distributed.py and
+tests/test_torch_adain_distributed.py.
 
 Each rank joins a gloo group through a rendezvous file, runs the jobs of
 ``job.pt`` in order on its rows of the global batch, and saves what they
@@ -222,8 +223,27 @@ def views(job):
             "animal": _np({"target": animal.draw_target(b), "source": animal.draw_source(b)})}
 
 
+def decoder(job):
+    """One AdaIN decoder step (``adain_engine.make_decoder_step``, SGD) on the
+    rank's rows of the content and style batches."""
+    from uda_poseestimation_torch import adain_engine
+    from uda_poseestimation_torch.models import StyleNet
+    from uda_poseestimation_torch.parallel import distributed as dist
+
+    net = StyleNet("meanstd")
+    net.load_state_dict(job["style_net"])
+    lr = job["decoder_lr"]
+    step, _ = adain_engine.make_decoder_step(
+        net, 1.0, 2.0, lr, optimizer=torch.optim.SGD(net.decoder.parameters(), lr=lr))
+    rows = dist.local_rows(len(job["content"]))
+    nchw = lambda a: torch.from_numpy(a[rows]).permute(0, 3, 1, 2).contiguous()  # noqa: E731
+    *losses, g_t = step(nchw(job["content"]), nchw(job["style_imgs"]))
+    return {"losses": [float(x) for x in losses], "g_t": _np(g_t),
+            "decoder": _primary_only(_sd(net.decoder)), "digests": _digests(net.decoder)}
+
+
 JOBS = {"bn": bn, "adapt": adapt, "pretrain": pretrain, "evaluate": evaluate,
-        "bundle": bundle, "views": views}
+        "bundle": bundle, "views": views, "decoder": decoder}
 
 
 def run(rank: int, world: int, work_dir: str):

@@ -4,7 +4,7 @@ uda_poseestimation_torch.adain.train_animal``) against the JAX package's
 
 - The parser: every option of the JAX parser, with the same option
   strings, destination, default, type, nargs and action; the port adds
-  only ``--device``.
+  only ``--device`` and the trainers' ``--dist-*`` flags.
 - ``denormalize``: the mean-only inverse with the clip, equal to JAX's.
 - The CLI through ``python -m`` on ``tools/make_fixtures.make_animal``'s
   tree at 32² (synthetic horse/tiger to TigDog ``_mt``), 4 iterations on
@@ -38,13 +38,16 @@ REPO = Path(__file__).resolve().parents[1]
 SIZE = 32
 
 
+PORT_ONLY = ("dist_coordinator", "dist_num_processes", "dist_process_id", "device")
+
+
 def _actions(parser):
     return {a.dest: a for a in parser._actions if a.dest != "help"}
 
 
 def test_parser_matches_jax():
     jact, tact = _actions(jcli.build_parser()), _actions(tcli.build_parser())
-    assert list(jact) == [d for d in tact if d != "device"]
+    assert list(jact) == [d for d in tact if d not in PORT_ONLY]
     for dest, j in jact.items():
         t = tact[dest]
         assert (t.option_strings, t.default, t.type, t.nargs, t.const, t.choices, type(t)) == \

@@ -17,7 +17,8 @@ adain_engine`` and ``adain/train_human.py``) against the JAX package's
   style thirds, checkpoints at the same iterations with the same keys,
   which load through the JAX package's ``load_style_net_params`` and the
   port's ``load_style_net_files``.
-- The CLI's parser has every flag and default of JAX's, plus ``--device``;
+- The CLI's parser has every flag and default of JAX's, plus ``--device``
+  and the trainers' ``--dist-*`` flags;
   ``main`` runs on tiny fake RHD and H3D trees with ``--device cpu``, and
   without a card it raises unless ``--device cpu`` is given.
 
@@ -275,7 +276,8 @@ def _actions(parser):
 
 def test_parser_matches_jax():
     jact, tact = _actions(jcli.build_parser()), _actions(tcli.build_parser())
-    assert set(tact) - set(jact) == {"device"} and set(jact) <= set(tact)
+    assert set(tact) - set(jact) == {"device", "dist_coordinator", "dist_num_processes",
+                                     "dist_process_id"} and set(jact) <= set(tact)
     for dest, j in jact.items():
         t = tact[dest]
         assert (t.option_strings, t.default, t.type, t.nargs, t.const, t.choices, type(t)) == \

@@ -227,6 +227,37 @@ def test_worker_batches_equal_in_process(rhd_root):
     assert_same(*batches)
 
 
+class _Draws:
+    """Items that draw from the worker's seeded ``random``, numpy and torch
+    streams."""
+
+    def __len__(self):
+        return 7
+
+    def __getitem__(self, i):
+        return np.array([i, random.random(), np.random.rand(), torch.rand(()).item()])
+
+
+@pytest.mark.parametrize("drop_last", [False, True])
+def test_loader_starts_no_idle_workers(drop_last):
+    """make_loader starts at most one worker a batch of a pass, and its
+    batches and draws over two passes are those of a DataLoader with all
+    the workers asked for."""
+    capped = tdata.make_loader(_Draws(), 3, shuffle=True, num_workers=8, drop_last=drop_last)
+    assert capped.num_workers == (2 if drop_last else 3)
+    full = torch.utils.data.DataLoader(_Draws(), batch_size=3, shuffle=True, num_workers=8,
+                                       drop_last=drop_last, persistent_workers=True,
+                                       collate_fn=tdata.default_collate)
+    passes = []
+    for loader in (capped, full):
+        torch.manual_seed(0)
+        passes.append([b for _ in range(2) for b in loader])
+    assert len(passes[0]) == (4 if drop_last else 6)
+    assert_same(*passes)
+    assert tdata.make_loader(_Draws(), 3, num_workers=0).num_workers == 0
+    assert tdata.make_loader(_Draws(), 8, num_workers=4, drop_last=True).num_workers == 1
+
+
 def test_forever_iterator(rhd_root):
     ds = _rhd(tdata, TT, rhd_root, mt=False, split="test")
     it = tdata.ForeverDataIterator(tdata.make_loader(ds, 3, drop_last=True))

@@ -86,7 +86,9 @@ def test_fixtures_cli_kinds(tmp_path):
     with pytest.raises(SystemExit):
         fixtures.main(["rhd"])  # needs DIR
     with pytest.raises(SystemExit):
-        fixtures.main(["animal", str(tmp_path)])
+        fixtures.main(["animal"])  # needs DIR
+    with pytest.raises(SystemExit, match="unknown fixture kind"):
+        fixtures.main(["horse", str(tmp_path)])
 
 
 @pytest.mark.parametrize("shift", [False, True])

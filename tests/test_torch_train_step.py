@@ -392,3 +392,10 @@ def test_entry_points_default_to_cuda(entry):
             "make_eval_step": lambda: tts.make_eval_step()}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def test_exact_warp_chain_false_raises():
+    """The port has only the reference's exact warp chain; the JAX
+    package's fused form is refused, not run as the exact one."""
+    with pytest.raises(NotImplementedError, match="exact_warp_chain=True only"):
+        tts.StepConfig(**dict(CFG, exact_warp_chain=False))

@@ -12,7 +12,9 @@ datasets' mean only, so ``denormalize`` adds ``ANIMAL_MEAN`` back and
 clips to [0, 1]. It runs ``adain_engine.run_decoder_training`` as the human
 CLI does: the same log lines, PNGs and ``decoder_<exp>.pth.tar``, which
 loads through the port's ``--decoder-name`` and the JAX package's
-``load_style_net_params``. ``--vgg`` falls back to
+``load_style_net_params``. The ``--dist-*`` flags train across GPUs as in
+``adain.train_human`` (``--batch_size`` must split over the processes).
+``--vgg`` falls back to
 ``<repo>/saved_models/vgg_normalised.pth``, then to a random encoder with a
 warning. TF32 is left as the caller has it (see ``adain.train_human``).
 """
@@ -23,10 +25,9 @@ import os
 import numpy as np
 
 from .. import data as datasets
-from ..adain_engine import run_decoder_training
+from ..adain_engine import decoder_process_group, run_decoder_training
 from ..data import ForeverDataIterator, make_loader
 from ..data import transforms as T
-from ..device import resolve_device
 
 ANIMAL_MEAN = np.array([0.3999, 0.3909, 0.3871], np.float32)
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
@@ -81,13 +82,25 @@ def build_parser():
     parser.add_argument("--content_weight", type=float, default=1.0)
     parser.add_argument("--save_model_interval", type=int, default=10000)
     parser.add_argument("--log_img_interval", type=int, default=5000)
+    parser.add_argument("--dist-coordinator", type=str, default=None,
+                        help="host:port of process 0 (or a file:// URL): the decoder "
+                             "trained over several processes, one a GPU, each taking its "
+                             "rows of the global batch; process 0 writes the files")
+    parser.add_argument("--dist-num-processes", type=int, default=1,
+                        help="total process count (with --dist-coordinator)")
+    parser.add_argument("--dist-process-id", type=int, default=0,
+                        help="this process's rank (with --dist-coordinator)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to train on (default: the CUDA card)")
     return parser
 
 
 def main(args):
-    device = resolve_device(args.device)
+    with decoder_process_group(args, args.batch_size) as device:
+        _train(args, device)
+
+
+def _train(args, device):
     np.random.seed(0)
     tgt_train_transform_stu = T.Compose([
         T.RandomAffineRotation(args.rotation_stu, args.shear_stu,

@@ -6,6 +6,13 @@ the reference's): the same flags and defaults, the ``_stu``/``_tea`` pairs
 included, plus ``--device`` (the card unless ``--device cpu`` is given);
 the same log lines, PNG dumps and ``decoder_<exp>.pth.tar`` at the same
 cadence under ``logs/<exp_name>/`` (``adain_engine.run_decoder_training``).
+``--dist-coordinator``/``--dist-num-processes``/``--dist-process-id`` (the
+trainers' flags) train across GPUs, one process a GPU, each taking its rows
+of the global batch of 4, which 1, 2 or 4 processes split:
+
+    python -m uda_poseestimation_torch.tools.launch_distributed -n 2 -- \\
+        python -m uda_poseestimation_torch.adain.train_human <flags...>
+
 As in the reference, both loaders take batches of 4 whatever
 ``--batch_size`` says, with one worker each; ``--vgg`` falls back to
 ``<repo>/saved_models/vgg_normalised.pth``, then to a random encoder with a
@@ -27,10 +34,9 @@ import os
 import numpy as np
 
 from .. import data as datasets
-from ..adain_engine import run_decoder_training
+from ..adain_engine import decoder_process_group, run_decoder_training
 from ..data import ForeverDataIterator, make_loader
 from ..data import transforms as T
-from ..device import resolve_device
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -83,13 +89,25 @@ def build_parser():
     parser.add_argument("--content_weight", type=float, default=1.0)
     parser.add_argument("--save_model_interval", type=int, default=10000)
     parser.add_argument("--log_img_interval", type=int, default=5000)
+    parser.add_argument("--dist-coordinator", type=str, default=None,
+                        help="host:port of process 0 (or a file:// URL): the decoder "
+                             "trained over several processes, one a GPU, each taking its "
+                             "rows of the global batch; process 0 writes the files")
+    parser.add_argument("--dist-num-processes", type=int, default=1,
+                        help="total process count (with --dist-coordinator)")
+    parser.add_argument("--dist-process-id", type=int, default=0,
+                        help="this process's rank (with --dist-coordinator)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to train on (default: the CUDA card)")
     return parser
 
 
 def main(args):
-    device = resolve_device(args.device)
+    with decoder_process_group(args, 4) as device:
+        _train(args, device)
+
+
+def _train(args, device):
     np.random.seed(0)
     normalize = T.Normalize(IMAGENET_MEAN, IMAGENET_STD)
     train_transform = T.Compose([

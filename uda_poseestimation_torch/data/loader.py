@@ -10,7 +10,8 @@ list. A list of k teacher views therefore stays a list of k batches, and an
 collate would instead keep lists of tuples as lists of tensors.
 
 ``make_loader`` builds the map-style loader the trainers use: ``-j``
-worker processes (kept across passes; 0 loads in the calling process),
+worker processes, at most one a batch of a pass (kept across passes; 0
+loads in the calling process),
 ``drop_last`` for the training sets, and page-locked batches when the device
 is CUDA, so the steps' host-to-device copies run asynchronously. torch seeds
 ``random`` and numpy in each worker from the loader's base seed, so with
@@ -61,7 +62,14 @@ def make_loader(dataset, batch_size: int, shuffle: bool = False, num_workers: in
                 drop_last: bool = False, pin_memory: bool = False,
                 sampler=None) -> DataLoader:
     """A DataLoader over ``dataset`` with ``default_collate``; ``sampler``
-    (a ``PartitionSampler``) replaces ``shuffle``."""
+    (a ``PartitionSampler``) replaces ``shuffle``. It starts no more workers
+    than a pass has batches: each pass hands batch i to worker i mod
+    ``num_workers``, from worker 0, so a worker past the last batch would
+    never get one, and the batches and their draws stay those of
+    ``num_workers`` workers."""
+    items = len(sampler) if sampler is not None else len(dataset)
+    batches = items // batch_size if drop_last else -(-items // batch_size)
+    num_workers = min(num_workers, max(batches, 1))
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                       sampler=sampler, num_workers=num_workers, drop_last=drop_last,
                       collate_fn=default_collate, pin_memory=pin_memory,

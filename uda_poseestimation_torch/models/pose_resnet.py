@@ -11,11 +11,13 @@ are the reference's state-dict keys (``backbone.*``, ``upsampling.{0..8}``,
 parameters and BatchNorm statistics, like the JAX model's ``dtype``.
 ``fuse_bn`` selects the backbone's fused 1x1-conv + BatchNorm-statistics
 path in train mode (``models/resnet.py``); None reads ``UDA_BN_FUSE``.
+``trans_pose_resnet`` and ``trans_pose_resnet50`` raise, as the JAX
+package's registry stubs do: the reference's own cannot be built.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -90,3 +92,26 @@ def pose_resnet50(num_keypoints: int, deconv_with_bias: bool = False,
     """Simple Baseline with ResNet-50 (reference pose_resnet.py:116-126)."""
     return PoseResNet(resnet_lib.resnet50(fuse_bn=fuse_bn), num_keypoints,
                       deconv_with_bias=deconv_with_bias, dtype=dtype)
+
+
+def trans_pose_resnet(num_keypoints, arch=None, **kwargs):
+    """Registry stub: the reference's trans_pose_resnet (pose_resnet.py:130-146)
+    imports a module that does not exist upstream (``.transpose_default``), so
+    it cannot be built there either."""
+    raise NotImplementedError(
+        "trans_pose_resnet is broken/dead code in the reference "
+        "(missing transpose_default module); kept only for registry parity")
+
+
+def trans_pose_resnet50(num_keypoints, arch=None, **kwargs):
+    """Registry stub; see ``trans_pose_resnet``."""
+    raise NotImplementedError(
+        "trans_pose_resnet50 is broken/dead code in the reference; "
+        "kept only for registry parity")
+
+
+def backbone_param_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name -> whether it belongs to the backbone (the reference's
+    0.1x finetune learning rate, pose_resnet.py:86-91; the steps' optimizer
+    groups, ``parallel/train_step.make_tx``)."""
+    return {name: name.startswith("backbone.") for name, _ in model.named_parameters()}

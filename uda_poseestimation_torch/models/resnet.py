@@ -15,6 +15,11 @@ routes each train-mode Bottleneck's conv1, conv3 and downsample 1x1 convs and
 their BatchNorms through the fused conv + statistics GEMM
 (``models/fused_bn.py``, the ``matmul_stats`` kernel on the card). Eval mode
 and the modules, hence the state dict, are the same either way.
+
+``groups`` and ``width_per_group`` give torchvision's ResNeXt and wide
+Bottlenecks (width = int(planes * width_per_group / 64) * groups, a grouped
+3x3 conv): ``resnet152``, ``resnext50_32x4d``, ``resnext101_32x8d``,
+``wide_resnet50_2`` and ``wide_resnet101_2`` beside resnet18-101.
 """
 
 from __future__ import annotations
@@ -89,9 +94,11 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, fuse_bn: bool = False):
-        # fuse_bn is accepted for a uniform constructor and ignored, as in
-        # the JAX package: the block's only 1x1 conv is its shortcut
+                 downsample: bool = False, fuse_bn: bool = False,
+                 groups: int = 1, base_width: int = 64):
+        # fuse_bn, groups and base_width are accepted for a uniform
+        # constructor and ignored, as in the JAX package: the block's only
+        # 1x1 conv is its shortcut, and it has no grouped form
         super().__init__()
         self.conv1 = conv3x3(inplanes, planes, stride)
         self.bn1 = BatchNorm2d(planes)
@@ -113,14 +120,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, fuse_bn: bool = False):
+                 downsample: bool = False, fuse_bn: bool = False,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
         self.fuse_bn = fuse_bn
-        self.conv1 = conv1x1(inplanes, planes)
-        self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv3x3(planes, planes, stride)  # torchvision v1: stride on 3x3
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = conv1x1(planes, planes * self.expansion)
+        # torchvision v1: width = planes * base_width/64 * groups, stride on the 3x3
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = conv1x1(inplanes, width)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, groups=groups,
+                               bias=False)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = conv1x1(width, planes * self.expansion)
         self.bn3 = BatchNorm2d(planes * self.expansion)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (nn.Sequential(
@@ -145,7 +156,8 @@ class ResNet(nn.Module):
     """Headless ResNet: NCHW in, stride-32 NCHW feature map out."""
 
     def __init__(self, block, stage_sizes: Sequence[int],
-                 fuse_bn: Optional[bool] = None):
+                 fuse_bn: Optional[bool] = None, groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
         self.block = block
         # None reads the JAX package's flag, with its meaning
@@ -164,7 +176,8 @@ class ResNet(nn.Module):
                 # projection shortcut where spatial or channel dims change
                 downsample = i == 0 and (stride != 1 or block.expansion != 1)
                 blocks.append(block(inplanes, planes, stride, downsample,
-                                    fuse_bn=self.fuse_bn))
+                                    fuse_bn=self.fuse_bn, groups=groups,
+                                    base_width=width_per_group))
                 inplanes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
@@ -234,9 +247,9 @@ def fused_gemm_shapes(backbone: ResNet, b: int, size: int) -> collections.Counte
     return counts
 
 
-def _make(block, stage_sizes):
+def _make(block, stage_sizes, **kwargs):
     def ctor(fuse_bn: Optional[bool] = None):
-        return ResNet(block, stage_sizes, fuse_bn=fuse_bn)
+        return ResNet(block, stage_sizes, fuse_bn=fuse_bn, **kwargs)
     return ctor
 
 
@@ -244,3 +257,8 @@ resnet18 = _make(BasicBlock, [2, 2, 2, 2])
 resnet34 = _make(BasicBlock, [3, 4, 6, 3])
 resnet50 = _make(Bottleneck, [3, 4, 6, 3])
 resnet101 = _make(Bottleneck, [3, 4, 23, 3])
+resnet152 = _make(Bottleneck, [3, 8, 36, 3])
+resnext50_32x4d = _make(Bottleneck, [3, 4, 6, 3], groups=32, width_per_group=4)
+resnext101_32x8d = _make(Bottleneck, [3, 4, 23, 3], groups=32, width_per_group=8)
+wide_resnet50_2 = _make(Bottleneck, [3, 4, 6, 3], width_per_group=128)
+wide_resnet101_2 = _make(Bottleneck, [3, 4, 23, 3], width_per_group=128)

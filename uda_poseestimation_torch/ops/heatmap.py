@@ -1,6 +1,7 @@
 """Batched Gaussian-heatmap ops: target generation, argmax decode, rectify.
 
-PyTorch twin of ``uda_poseestimation_tpu/ops/heatmap.py``, with the same
+PyTorch twin of ``uda_poseestimation_tpu/ops/heatmap.py`` (with
+``generate_prior_map``, which no trainer calls), with the same
 reference quirks kept for bit parity: python-``int()`` truncation of the
 window bounds and centers, the 3*sigma paste window, and ``rectify``'s
 swapped h/w bounds check and clip (reference utils.py:89,101-105).
@@ -96,6 +97,33 @@ def get_max_preds(heatmaps):
     preds = torch.stack([px, py], dim=-1)
     preds = preds * (maxvals > 0.0).to(torch.float32)[..., None]
     return preds, maxvals[..., None]
+
+
+def generate_prior_map(prior_mean, prior_std, preds, gamma: float = 2.0,
+                       sigma: float = 2.0, epsilon: float = -10e10, v3: bool = False):
+    """Keypoint-prior ensemble map (reference utils.py:111-145, which no
+    trainer calls). From each channel's argmax of ``preds`` (B, K, H, W),
+    every channel's expected location is rendered as a ring of the
+    pairwise mean distance ``prior_mean`` (K, K), and the rings are summed
+    with weights: by default a softmax over -``prior_std``/``gamma`` down
+    each column with ``epsilon`` on the diagonal; with ``v3``,
+    1/(1 + ``prior_std``) times the argmax channel's peak. (B, K, H, W)."""
+    b, k, h, w = preds.shape
+    pred_coord, pred_val = get_max_preds(preds)  # (B, K, 2), (B, K, 1)
+    ys, xs = _center_grid(h, w, preds.device)
+    grid = torch.stack([xs, ys])  # (2, H, W) absolute coords
+    diff = grid[None, None] - pred_coord[:, :, :, None, None]  # (B, K, 2, H, W)
+    dist = torch.sqrt((diff * diff).sum(dim=2))[:, :, None]  # (B, K, 1, H, W)
+    dist = dist.expand(b, k, k, h, w) - prior_mean[None, :, :, None, None]
+    targets = torch.exp(-(dist ** 2) / (2 * sigma ** 2))
+    if v3:
+        var_table = (1.0 / (1.0 + prior_std))[None]  # (1, K, K)
+        final_weight = var_table * pred_val.reshape(b, k, 1)  # (B, K, K)
+        return (final_weight[:, :, :, None, None] * targets).sum(dim=1)
+    temp_std = (-prior_std / gamma).clone()
+    temp_std.fill_diagonal_(epsilon)
+    weights = torch.softmax(temp_std, dim=0)  # (K, K)
+    return (weights[None, :, :, None, None] * targets).sum(dim=1)
 
 
 def rectify(heatmaps, sigma: float):

@@ -57,6 +57,7 @@ from torch import nn
 from ..device import DeviceLike, device_scalar, device_vector, resolve_device
 from ..models.ema import ema_update
 from ..models.loss import cons_loss, joints_mse_loss
+from ..models.pose_resnet import backbone_param_mask
 from ..models.style_net import StyleNet
 from ..ops.adain import adain
 from ..ops import launches
@@ -88,7 +89,8 @@ class StepConfig:
     # 0.1x learning rate on backbone params (lib/models/pose_resnet.py:86-91)
     finetune: bool = False
     # True reproduces the reference's 3 chained nearest resamples exactly;
-    # the port has only this path so far (False raises)
+    # the port has only this path (False raises: the JAX package's fused
+    # resample and sequential occlusion warp were slower on the card, PERF.md §6)
     exact_warp_chain: bool = True
     # the JAX package's choice of occlusion gather; the port has one path,
     # ``occlusion_warp`` (the CUDA kernel on the card, its plain version on
@@ -137,9 +139,10 @@ def make_tx(model: nn.Module, cfg: StepConfig) -> torch.optim.Optimizer:
     (train_human.py:136-139). With ``cfg.finetune`` the backbone is its own
     group at 0.1x the learning rate. Each group carries ``lr_scale``; the
     steps set ``lr = lr_scale * lr`` before every update."""
+    in_backbone = backbone_param_mask(model)
     backbone, rest = [], []
     for name, p in model.named_parameters():
-        (backbone if cfg.finetune and name.startswith("backbone.") else rest).append(p)
+        (backbone if cfg.finetune and in_backbone[name] else rest).append(p)
     groups = [{"params": rest, "lr_scale": 1.0}]
     if backbone:
         groups.append({"params": backbone, "lr_scale": 0.1})

@@ -1,13 +1,15 @@
 """Fake datasets and random style weights for the port's drives.
 
-The twin of the repository's ``tools/make_fixtures.py``: the same RHD trees,
-byte for byte from the same seeds (PNG frames and annotation pickles), and
-random StyleNet weights in the reference's state-dict files, made with the
-port's ``StyleNet``. No file is downloaded.
+The twin of the repository's ``tools/make_fixtures.py``: the same RHD and
+animal trees, byte for byte from the same seeds (PNG and JPEG frames,
+annotation pickles, JSON, ``.mat`` and ``.npy`` files; a ``.mat`` header's
+time of writing aside), and random StyleNet weights in the reference's
+state-dict files, made with the port's ``StyleNet``. No file is downloaded.
 
     python -m uda_poseestimation_torch.tools.fixtures rhd DIR
     python -m uda_poseestimation_torch.tools.fixtures rhd_shifted DIR
     python -m uda_poseestimation_torch.tools.fixtures rhd_shifted_hard DIR
+    python -m uda_poseestimation_torch.tools.fixtures animal DIR
     python -m uda_poseestimation_torch.tools.fixtures style [DIR]
 
 An RHD tree mirrors the layout that ``data/rendered_hand_pose.py`` reads:
@@ -96,6 +98,105 @@ def make_rhd(root, n_train=96, n_eval=16, size=320, shift=False):
     print("fake RHD at", root)
 
 
+def _blob_frame(rng, h, w, kp, bg, sigma):
+    """A (h, w) RGB frame: uniform noise times ``bg`` plus a Gaussian blob of
+    ``sigma`` at each keypoint, in channel ``j % 3``, as uint8."""
+    img = rng.rand(h, w, 3).astype(np.float32) * bg
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for j in range(len(kp)):
+        g = np.exp(-((xx - kp[j, 0]) ** 2 + (yy - kp[j, 1]) ** 2) / (2 * sigma ** 2))
+        img[..., j % 3] += g
+    return Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def make_animal(root, n_per_animal=8, frames_per_shot=4):
+    """Fake synthetic-animal (source) and TigDog (target) trees for horse and
+    tiger, byte-equal to the repository's ``tools/make_fixtures.make_animal``
+    from the same seed:
+
+        <root>/animal_data/synthetic_animal/<animal>_combineds5r5_texture/*.png
+        <root>/animal_data/clean_data/keypoints_18.json
+        <root>/animal_data/behaviorDiscovery2.0/{ranges,landmarks,<animal>}/...
+        <root>/cached_data/...   (set UDA_CACHED_DATA_DIR to it)
+
+    scipy writes the TigDog ``.mat`` files (its header holds the time of
+    writing); torch writes the ``mean.pth.tar`` statistics."""
+    import json
+
+    import torch
+    from scipy.io import savemat
+
+    data_dir = os.path.join(root, "animal_data")
+    cached = os.path.join(root, "cached_data")
+    rng = np.random.RandomState(0)
+
+    # the synthetic source: 640x480 renders, 18 keypoints a frame
+    data = {}
+    for animal in ("horse", "tiger"):
+        img_dir = os.path.join(data_dir, "synthetic_animal", f"{animal}_combineds5r5_texture")
+        os.makedirs(img_dir, exist_ok=True)
+        imgpaths, kpts_all, bbox_all = [], [], []
+        for i in range(n_per_animal):
+            p = os.path.join(img_dir, f"{i:04d}_img.png")
+            kp = np.concatenate([rng.uniform(150, 500, (18, 1)), rng.uniform(100, 380, (18, 1)),
+                                 np.ones((18, 1))], axis=1)
+            _blob_frame(rng, 480, 640, kp, 0.2, 8.0).save(p)
+            imgpaths.append(os.path.relpath(p, root))
+            kpts_all.append(kp.tolist())
+            bbox_all.append([float(kp[:, 0].min()), float(kp[:, 0].max()),
+                             float(kp[:, 1].min()), float(kp[:, 1].max())])
+        n_train = max(2, int(n_per_animal * 0.75))
+        data[animal] = {"keypoints": kpts_all, "imgpath": imgpaths, "bbox": bbox_all,
+                        "train_idxs": list(range(n_train)),
+                        "valid_idxs": list(range(n_train, n_per_animal))}
+        cdir = os.path.join(cached, "synthetic_animal", f"{animal}_combineds5r5_texture")
+        os.makedirs(cdir, exist_ok=True)
+        torch.save({"mean": torch.tensor([0.4, 0.39, 0.38]),
+                    "std": torch.tensor([0.25, 0.24, 0.23])},
+                   os.path.join(cdir, "mean.pth.tar"))
+    alldir = os.path.join(cached, "synthetic_animal", "all_combineds5r5_texture")
+    os.makedirs(alldir, exist_ok=True)
+    torch.save({"mean": torch.tensor([0.3999, 0.3909, 0.3871]),
+                "std": torch.tensor([0.2589, 0.2431, 0.2291])},
+               os.path.join(alldir, "mean.pth.tar"))
+    os.makedirs(os.path.join(data_dir, "clean_data"), exist_ok=True)
+    with open(os.path.join(data_dir, "clean_data", "keypoints_18.json"), "w") as f:
+        json.dump(data, f)
+
+    # the TigDog target: two shots of 320x240 frames an animal
+    for animal in ("horse", "tiger"):
+        rdir = os.path.join(data_dir, "behaviorDiscovery2.0", "ranges", animal)
+        ldir = os.path.join(data_dir, "behaviorDiscovery2.0", "landmarks", animal)
+        idir = os.path.join(data_dir, "behaviorDiscovery2.0", animal)
+        for d in (rdir, ldir, idir):
+            os.makedirs(d, exist_ok=True)
+        ranges, frame = [], 1
+        for shot in (1, 2):
+            ranges.append([shot, frame, frame + frames_per_shot - 1])
+            cells = np.empty((frames_per_shot, 1), dtype=object)
+            for fi in range(frames_per_shot):
+                kp = np.concatenate([rng.uniform(60, 260, (18, 1)),
+                                     rng.uniform(40, 200, (18, 1))], axis=1)
+                name = "%08d.jpg" % frame
+                _blob_frame(rng, 240, 320, kp, 0.2, 6.0).save(os.path.join(idir, name))
+                rec = np.zeros((1, 1), dtype=[("coord", "O"), ("vis", "O")])
+                rec[0, 0]["coord"] = kp
+                rec[0, 0]["vis"] = np.ones((18, 1))
+                cells[fi, 0] = rec
+                frame += 1
+            savemat(os.path.join(ldir, f"{shot}.mat"), {"landmarks": cells})
+        savemat(os.path.join(rdir, "ranges.mat"), {"ranges": np.asarray(ranges, np.int64)})
+        n_frames = 2 * frames_per_shot
+        cdir = os.path.join(cached, "real_animal", animal)
+        os.makedirs(cdir, exist_ok=True)
+        idxs = rng.permutation(n_frames)
+        np.save(os.path.join(cdir, "train_idxs_by_video.npy"),
+                np.sort(idxs[: n_frames * 3 // 4]))
+        np.save(os.path.join(cdir, "valid_idxs_by_video.npy"),
+                np.sort(idxs[n_frames * 3 // 4:]))
+    print("fake animal data at", root, "(set UDA_CACHED_DATA_DIR=%s)" % cached)
+
+
 # the seed of the random style weights
 STYLE_SEED = 1
 
@@ -125,13 +226,17 @@ def main(argv=None):
     kind = argv[0] if argv else "rhd"
     if kind == "style":
         make_style_weights(argv[1] if len(argv) > 1 else "saved_models")
+    elif kind == "animal":
+        if len(argv) < 2:
+            raise SystemExit("usage: fixtures animal DIR")
+        make_animal(argv[1])
     elif kind in _RHD_KINDS:
         if len(argv) < 2:
             raise SystemExit(f"usage: fixtures {kind} DIR")
         make_rhd(argv[1], shift=_RHD_KINDS[kind])
     else:
         raise SystemExit(f"unknown fixture kind {kind}: "
-                         f"{', '.join([*_RHD_KINDS, 'style'])}")
+                         f"{', '.join([*_RHD_KINDS, 'animal', 'style'])}")
 
 
 if __name__ == "__main__":

@@ -460,7 +460,12 @@ def run_training(args, device, logger, train_source_dataset, train_source_iter,
         report(epoch, acc, best_acc)
 
 
-ARCHITECTURES = ("pose_resnet50", "pose_resnet101")
+# --arch's choices: the registry's lowercase callables, by the JAX CLI's rule
+# (a stub or a headless backbone among them raises or fails when built, as
+# in JAX)
+ARCHITECTURES = tuple(name for name in models.__dict__
+                      if name.islower() and not name.startswith("__")
+                      and callable(models.__dict__[name]))
 
 
 def build_parser():
