@@ -17,6 +17,10 @@ adain_engine`` and ``adain/train_human.py``) against the JAX package's
   style thirds, checkpoints at the same iterations with the same keys,
   which load through the JAX package's ``load_style_net_params`` and the
   port's ``load_style_net_files``.
+- The loop's spans (``utils/trace.py``), under the profiler: one
+  ``decoder.fetch`` and ``decoder.step`` an iteration, the flush's
+  ``decoder.log`` and the checkpoint's ``decoder.save``, none inside
+  another (on the CPU no readback waits: ``decoder.readback`` is the card's).
 - The CLI's parser has every flag and default of JAX's, plus ``--device``
   and the trainers' ``--dist-*`` flags;
   ``main`` runs on tiny fake RHD and H3D trees with ``--device cpu``, and
@@ -40,6 +44,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -61,6 +66,7 @@ from uda_poseestimation_torch import adain_engine as tengine
 from uda_poseestimation_torch import weights
 from uda_poseestimation_torch.adain import train_human as tcli
 from uda_poseestimation_torch.models import StyleNet
+from uda_poseestimation_torch.utils import trace
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = 32
@@ -242,6 +248,31 @@ def test_run_decoder_training_matches_jax(params, tmp_path, monkeypatch):
     tstyle = weights.load_style_net_files(StyleNet(), str(vgg), str(ckpts[0]))
     for k, v in tstyle.decoder.state_dict().items():
         assert torch.equal(v, got[k]), k
+
+
+def test_decoder_loop_spans_lie_side_by_side(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = argparse.Namespace(exp_name="t", save_model_dir="ckpt", vgg=None, lr=1e-4,
+                              content_weight=1.0, style_weight=1.0, max_iter=3,
+                              log_img_interval=2, save_model_interval=2)
+    np.random.seed(0)
+    t0 = time.perf_counter_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tengine.run_decoder_training(args, _batches(1), _batches(2), lambda x: x,
+                                     device="cpu")
+    events = prof.profiler.kineto_results.events()
+    spans = sorted(((e.name(), e.start_ns(), e.end_ns()) for e in events
+                    if e.name().startswith("decoder.")), key=lambda e: e[1])
+    assert [s[0] for s in spans] == [
+        "decoder.fetch", "decoder.step", "decoder.fetch", "decoder.step", "decoder.log",
+        "decoder.save", "decoder.fetch", "decoder.step", "decoder.log", "decoder.save",
+        "decoder.log"]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))  # none inside another
+    counts = {n: c for n, (c, _) in trace.counters(t0).items()}
+    assert {n: counts[n] for n in ("decoder.fetch", "decoder.step", "decoder.log",
+                                   "decoder.save")} == \
+        {"decoder.fetch": 3, "decoder.step": 3, "decoder.log": 3, "decoder.save": 2}
+    assert os.path.exists("logs/t/ckpt/decoder_t.pth.tar")
 
 
 def test_encoder_fallback_is_random_and_seeded(tmp_path, capsys):

@@ -33,6 +33,10 @@
   (``ops/launches.py``), the ticket buffer's capture guard, the checkpoint's
   non-capturable layout; and, marked ``gpu``, graph replays against eager
   steps on the card.
+- The spans and counters of ``utils/trace.py``: a bundled epoch's
+  ``engine.fetch`` once an iteration, its readback and log once a bundle;
+  a bundler's ``reset_reasons``: ``buffer`` on the CPU and, on the card,
+  ``first``, ``generator`` and ``lr``.
 
 JAX is imported inside the tests that use it, so that the card test runs
 where only PyTorch is installed (``-m gpu --noconftest``).
@@ -43,6 +47,7 @@ import functools
 import math
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -57,6 +62,7 @@ from uda_poseestimation_torch.ops.occlusion_warp import occlusion_warp
 from uda_poseestimation_torch.parallel import train_step as tts
 from uda_poseestimation_torch.utils import CompleteLogger
 from uda_poseestimation_torch.utils import checkpoint as tckpt
+from uda_poseestimation_torch.utils import trace
 
 B, K = 4, 5  # tests/test_torch_train_step.py's sizes
 LR_CHAIN = 1e-3  # the JAX comparisons' learning rate (see above)
@@ -279,6 +285,21 @@ def test_bundler_restages_a_new_batch_shape():
         want = step(single, batch, 1e-3, True, 0.5)[1]
         _assert_equal_trees(bundler(bundled, [batch], 1e-3, [True], [0.5])[1], [want])
     assert bundler._static["batch/image_s"].shape[0] == 2
+
+
+def test_bundler_counts_why_it_dropped_its_graphs():
+    """The first call's new buffers drop nothing; a staged buffer of
+    another shape records ``buffer``."""
+    model, style = _models()
+    cfg = tts.StepConfig(**CFG)
+    state = tts.create_state(model, cfg, seed=None, device="cpu")
+    bundler = tts.PretrainStepBundler(cfg, style, "cpu")
+    batch = _batch(1, True)
+    bundler(state, [batch], 1e-3, [True], [0.5])
+    bundler(state, [batch], 1e-3, [True], [0.5])
+    assert bundler.reset_reasons == {}
+    bundler(state, [{k: v[:2] for k, v in batch.items()}], 1e-3, [True], [0.5])
+    assert bundler.reset_reasons == {"buffer": 1}
 
 
 def test_bundler_checks_gate_lengths():
@@ -558,6 +579,30 @@ def test_bundled_epoch_matches_jax(loop, style_enabled, capsys):
 
 
 @pytest.mark.parametrize("loop", ["pretrain", "adapt"])
+def test_bundled_epoch_spans_count_its_iterations(loop, capsys, monkeypatch):
+    """Seven iterations in bundles of 3, 3 and 1: a fetch span an
+    iteration, a readback and a log span a bundle, the Data meter the
+    bundles' fetch time."""
+    progress = []
+
+    class KeptProgress(tengine.ProgressMeter):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            progress.append(self)
+
+    monkeypatch.setattr(tengine, "ProgressMeter", KeptProgress)
+    t0 = time.perf_counter_ns()
+    (_, _, _, _, rec), = _run_bundled(loop, True, capsys, n=3, iters=7, packages=("torch",))
+    spans = {n: c for n, c in trace.counters(t0).items() if n.startswith("engine.")}
+    assert rec.bundles == [3, 3, 1]
+    assert {n: c for n, (c, _) in spans.items()} == \
+        {"engine.fetch": 7, "engine.readback": 3, "engine.log": 3}
+    data = progress[0].meters[1]
+    assert data.name == "Data" and data.count == 3
+    assert data.sum == pytest.approx(spans["engine.fetch"][1], rel=1e-9, abs=1e-12)
+
+
+@pytest.mark.parametrize("loop", ["pretrain", "adapt"])
 def test_bundled_and_unbundled_epochs_consume_the_same_streams(loop, capsys):
     """The port's bundled loop (bundles of 3 over 7 iterations) and its
     unbundled loop make the same step calls from the same source, target and
@@ -798,6 +843,31 @@ def test_fingerprint_sees_what_a_graph_holds():
     assert restored != first
     state.optimizer.param_groups[0]["betas"] = (0.8, 0.999)
     assert tts._fingerprint(state) != restored
+
+
+@pytest.mark.gpu
+def test_bundler_counts_a_new_generator_on_card(cuda):
+    """The first call on the card records ``first``; a new epoch's
+    generator drops the graphs as ``generator``, another lr as ``lr``."""
+    model, style = _models()
+    cfg = tts.StepConfig(**CFG)
+    state = tts.create_state(model, cfg, seed=None, device=cuda)
+    bundler = tts.AdaptStepBundler(cfg, style.to(cuda), cuda)
+    batch = {k: torch.from_numpy(v).pin_memory() for k, v in _batch(0).items()}
+
+    def bundle(gen, lr=1e-3):
+        bundler(state, [batch] * 2, lr, [True] * 2, [0.5] * 2, [False] * 2, [0.0] * 2,
+                generator=gen)
+
+    first = torch.Generator(device=cuda).manual_seed(0)
+    bundle(first)
+    bundle(first)
+    assert bundler.reset_reasons == {"first": 1} and bundler.captures == 1
+    second = torch.Generator(device=cuda).manual_seed(1)
+    bundle(second)
+    assert bundler.reset_reasons == {"first": 1, "generator": 1} and bundler.captures == 2
+    bundle(second, lr=2e-3)
+    assert bundler.reset_reasons == {"first": 1, "generator": 1, "lr": 1}
 
 
 @pytest.mark.gpu

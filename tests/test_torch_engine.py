@@ -14,9 +14,14 @@ so the last batch is partial: the JAX loop pads it and rescales the loss,
 the port runs it as it is. The group PCK must be equal, and each batch's
 logged loss equal within 1e-5 relative (float32 sums over different
 shapes: the padded mean times 4/2 against the plain mean of 2 rows).
+
+The port's unbundled loops record one ``engine.fetch``, ``engine.readback``
+and ``engine.log`` span an iteration (``utils/trace.py``), and the Data
+meter holds the fetch spans' time.
 """
 
 import re
+import time
 import types
 
 import jax
@@ -41,6 +46,7 @@ from uda_poseestimation_torch.data import make_loader
 from uda_poseestimation_torch.models import Bottleneck, PoseResNet, ResNet
 from uda_poseestimation_torch.ops.pck import get_max_preds_np
 from uda_poseestimation_torch.parallel import train_step as tts
+from uda_poseestimation_torch.utils import trace
 
 B, K, SIZE, HM = 4, 5, 32, 8
 
@@ -219,6 +225,31 @@ def test_adapt_epoch_matches_jax(style_enabled, capsys):
     assert torch_run[5].seeds == [want] * 5
     if style_enabled:
         assert {g[0] for _, _, g in torch_run[0]} == {True, False}
+
+
+@pytest.mark.parametrize("loop", ["pretrain", "adapt"])
+def test_unbundled_epoch_spans_count_its_iterations(loop, capsys, monkeypatch):
+    progress = []
+
+    class KeptProgress(tengine.ProgressMeter):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            progress.append(self)
+
+    monkeypatch.setattr(tengine, "ProgressMeter", KeptProgress)
+    state = types.SimpleNamespace(student=torch.nn.Linear(1, 1))
+    rec = _Recorder(True)
+    run = tengine.run_pretrain_epoch if loop == "pretrain" else tengine.run_adapt_epoch
+    step = rec.torch_pretrain if loop == "pretrain" else rec.torch_adapt
+    t0 = time.perf_counter_ns()
+    run(state, step, _Iter(_source, 1, True), _Iter(_target, 2, True), 3, 1e-4,
+        _args(iters_per_epoch=5), None, True)
+    spans = {n: c for n, c in trace.counters(t0).items() if n.startswith("engine.")}
+    assert {n: c for n, (c, _) in spans.items()} == dict.fromkeys(spans, 5)
+    data = progress[0].meters[1]
+    assert data.name == "Data" and data.count == 5
+    assert data.sum == pytest.approx(spans["engine.fetch"][1], rel=1e-9, abs=1e-12)
+    assert "Epoch: [3][4/5]" in capsys.readouterr().out
 
 
 class _JVal(JKeypointDataset):

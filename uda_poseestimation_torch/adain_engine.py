@@ -47,6 +47,7 @@ from PIL import Image
 from .device import DeviceLike, resolve_device
 from .models.style_net import StyleNet, VGGEncoder, reset_conv_parameters
 from .parallel import distributed as dist
+from .utils import trace
 from .weights import load_by_key
 
 
@@ -207,48 +208,55 @@ def run_decoder_training(args, source_iter, target_iter, denormalize,
     def flush(item):
         j, losses, image, done, content0, style0 = item
         if done is not None:
-            done.synchronize()
-        loss, loss_c, loss_s = (float(x) for x in losses)
-        if not primary:
-            return
-        with open(fname, "a") as f:
-            f.write("iter: " + str(j) + ", decoder_loss: " + str(loss)
-                    + ", content loss: " + str(loss_c)
-                    + ", style loss: " + str(loss_s) + "\n")
-        if image is not None:
-            save_side_by_side(out + str(j) + ".png", image, content0, style0, denormalize)
+            with trace.span("decoder.readback"):
+                done.synchronize()
+        with trace.span("decoder.log"):
+            loss, loss_c, loss_s = (float(x) for x in losses)
+            if not primary:
+                return
+            with open(fname, "a") as f:
+                f.write("iter: " + str(j) + ", decoder_loss: " + str(loss)
+                        + ", content loss: " + str(loss_c)
+                        + ", style loss: " + str(loss_s) + "\n")
+            if image is not None:
+                save_side_by_side(out + str(j) + ".png", image, content0, style0, denormalize)
 
     pending = None
     swaps = []
     for i in range(args.max_iter):
-        source_image = torch.as_tensor(get_source_image(next(source_iter)), dtype=torch.float32)
-        target_image = torch.as_tensor(get_target_view(next(target_iter)), dtype=torch.float32)
-        # the swap draws from the global numpy stream of this process (of
-        # every rank alike under a group)
-        swaps.append(np.random.rand() > 0.5)
-        if swaps[-1]:
-            content_images, style_images = source_image, target_image
-        else:
-            content_images, style_images = target_image, source_image
-        rows = dist.local_rows(len(content_images)) if dist.is_active() else slice(None)
-        content_d, style_d = (x[rows].to(device, non_blocking=True).permute(0, 3, 1, 2)
-                              .contiguous() for x in (content_images, style_images))
-        losses_d = step(content_d, style_d)
-        losses = [x.to("cpu", non_blocking=True) for x in losses_d[:3]]
-        image = (losses_d[3][0].to("cpu", non_blocking=True).permute(1, 2, 0)
-                 if i % args.log_img_interval == 0 else None)
-        done = None
-        if device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        with trace.span("decoder.fetch"):
+            source_image = torch.as_tensor(get_source_image(next(source_iter)),
+                                           dtype=torch.float32)
+            target_image = torch.as_tensor(get_target_view(next(target_iter)),
+                                           dtype=torch.float32)
+            # the swap draws from the global numpy stream of this process (of
+            # every rank alike under a group)
+            swaps.append(np.random.rand() > 0.5)
+            if swaps[-1]:
+                content_images, style_images = source_image, target_image
+            else:
+                content_images, style_images = target_image, source_image
+            rows = dist.local_rows(len(content_images)) if dist.is_active() else slice(None)
+            content_d, style_d = (x[rows].to(device, non_blocking=True).permute(0, 3, 1, 2)
+                                  .contiguous() for x in (content_images, style_images))
+        with trace.span("decoder.step"):
+            losses_d = step(content_d, style_d)
+            losses = [x.to("cpu", non_blocking=True) for x in losses_d[:3]]
+            image = (losses_d[3][0].to("cpu", non_blocking=True).permute(1, 2, 0)
+                     if i % args.log_img_interval == 0 else None)
+            done = None
+            if device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
         if pending is not None:
             flush(pending)
         pending = (i, losses, image, done, content_images[0].numpy(), style_images[0].numpy())
         if primary and ((i + 1) % args.save_model_interval == 0 or (i + 1) == args.max_iter):
             # the reference's decoder file (adain/train/train_human.py:228-232):
             # the raw Sequential-index state dict, float32 CPU tensors
-            torch.save({k: v.float().cpu() for k, v in style.decoder.state_dict().items()},
-                       os.path.join(save_model_dir, "decoder_" + exp_name + ".pth.tar"))
+            with trace.span("decoder.save"):
+                torch.save({k: v.float().cpu() for k, v in style.decoder.state_dict().items()},
+                           os.path.join(save_model_dir, "decoder_" + exp_name + ".pth.tar"))
     if pending is not None:
         flush(pending)
     _check_same_draws(swaps)

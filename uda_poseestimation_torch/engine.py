@@ -53,6 +53,7 @@ from .ops.device_aug import (animal_source_views, animal_views, augment_views,
                               draw_animal_source, draw_rrc, draw_view, rrc_views)
 from .ops.pck import get_max_preds_np
 from .parallel import distributed as dist
+from .utils import trace
 from .utils.meter import AverageMeter, AverageMeterList, ProgressMeter
 
 
@@ -565,34 +566,38 @@ def run_pretrain_epoch(state, pretrain_step, source_iter, target_iter, epoch, lr
     def flush(item):
         nonlocal end
         i, n, metrics, y_s, x_s, meta_s = item
-        acc_s.update(float(metrics["acc_s"]), int(metrics["acc_cnt"]))  # syncs
-        losses_all.update(float(metrics["loss_all"]), n)
-        losses_s.update(float(metrics["loss_s"]), n)
-        batch_time.update(time.time() - end)
-        end = time.time()
-        if i % args.print_freq == 0 and dist.is_primary():
-            progress.display(i)
-            if visualize is not None and meta_s.get("keypoint2d") is not None:
-                _visualize_source(visualize, x_s, y_s, meta_s["keypoint2d"], i, args)
+        with trace.span("engine.readback"):
+            acc = float(metrics["acc_s"])  # syncs
+        with trace.span("engine.log"):
+            acc_s.update(acc, int(metrics["acc_cnt"]))
+            losses_all.update(float(metrics["loss_all"]), n)
+            losses_s.update(float(metrics["loss_s"]), n)
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if i % args.print_freq == 0 and dist.is_primary():
+                progress.display(i)
+                if visualize is not None and meta_s.get("keypoint2d") is not None:
+                    _visualize_source(visualize, x_s, y_s, meta_s["keypoint2d"], i, args)
 
     for i in range(args.iters_per_epoch):
-        x_s, label_s, weight_s, meta_s = next(source_iter)
-        do_s2t, alpha = gate.draw()
-        if device_aug is not None:
-            raw = device_aug.raw_source((x_s, label_s, weight_s, meta_s))
-            img_s, tgt_s, w_s, kp_aug = device_aug.prep_source(*raw)
-            batch = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
-            # the animal source's keypoint2d exists on the device only
-            meta_s = {"keypoint2d": kp_aug if device_aug.host_visualizable else None}
-            if style_enabled:
-                batch["image_t_style"] = (device_aug.style_image(next(target_iter))
-                                          if do_s2t else torch.zeros_like(img_s))
-        else:
-            image_t_style = None
-            if style_enabled:
-                image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
-            batch = make_source_batch(x_s, label_s, weight_s, image_t_style)
-        data_time.update(time.time() - end)
+        with trace.span("engine.fetch") as fetch:
+            x_s, label_s, weight_s, meta_s = next(source_iter)
+            do_s2t, alpha = gate.draw()
+            if device_aug is not None:
+                raw = device_aug.raw_source((x_s, label_s, weight_s, meta_s))
+                img_s, tgt_s, w_s, kp_aug = device_aug.prep_source(*raw)
+                batch = {"image_s": img_s, "target_s": tgt_s, "weight_s": w_s}
+                # the animal source's keypoint2d exists on the device only
+                meta_s = {"keypoint2d": kp_aug if device_aug.host_visualizable else None}
+                if style_enabled:
+                    batch["image_t_style"] = (device_aug.style_image(next(target_iter))
+                                              if do_s2t else torch.zeros_like(img_s))
+            else:
+                image_t_style = None
+                if style_enabled:
+                    image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
+                batch = make_source_batch(x_s, label_s, weight_s, image_t_style)
+        data_time.update(fetch.seconds)
 
         state, metrics, y_s = pretrain_step(state, batch, lr, do_s2t, alpha)
         if pending is not None:
@@ -646,30 +651,35 @@ def run_adapt_epoch(state, adapt_step, source_iter, target_iter, epoch, lr, args
     def flush(item):
         nonlocal end
         i, n, metrics, y_s, src = item
-        acc_s.update(float(metrics["acc_s"]), int(metrics["acc_cnt"]))  # syncs
-        losses_all.update(float(metrics["loss_all"]), n)
-        losses_s.update(float(metrics["loss_s"]), n)
-        losses_c.update(float(metrics["loss_c"]), n)
-        batch_time.update(time.time() - end)
-        end = time.time()
-        if i % args.print_freq == 0 and dist.is_primary():
-            progress.display(i)
-            if visualize is not None:
-                _visualize_source(visualize, src[0], y_s, src[3].get("keypoint2d"), i, args)
+        with trace.span("engine.readback"):
+            acc = float(metrics["acc_s"])  # syncs
+        with trace.span("engine.log"):
+            acc_s.update(acc, int(metrics["acc_cnt"]))
+            losses_all.update(float(metrics["loss_all"]), n)
+            losses_s.update(float(metrics["loss_s"]), n)
+            losses_c.update(float(metrics["loss_c"]), n)
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if i % args.print_freq == 0 and dist.is_primary():
+                progress.display(i)
+                if visualize is not None:
+                    _visualize_source(visualize, src[0], y_s, src[3].get("keypoint2d"), i,
+                                      args)
 
     for i in range(args.iters_per_epoch):
-        src = next(source_iter)
-        tgt = next(target_iter)
-        if device_aug is not None:
-            # raw canvases only: the step builds every view
-            batch = device_aug.raw_adapt_batch(src, tgt)
-            src = (src[0], None, None, {"keypoint2d": None})
-        else:
-            batch = make_adapt_batch(src, tgt)
-        data_time.update(time.time() - end)
+        with trace.span("engine.fetch") as fetch:
+            src = next(source_iter)
+            tgt = next(target_iter)
+            if device_aug is not None:
+                # raw canvases only: the step builds every view
+                batch = device_aug.raw_adapt_batch(src, tgt)
+                src = (src[0], None, None, {"keypoint2d": None})
+            else:
+                batch = make_adapt_batch(src, tgt)
+            do_s2t, alpha_s2t = s2t.draw()
+            do_t2s, alpha_t2s = t2s.draw()
+        data_time.update(fetch.seconds)
 
-        do_s2t, alpha_s2t = s2t.draw()
-        do_t2s, alpha_t2s = t2s.draw()
         state, metrics, y_s = adapt_step(state, batch, lr, do_s2t, alpha_s2t,
                                          do_t2s, alpha_t2s, generator=generator)
         if pending is not None:
@@ -728,18 +738,20 @@ def _bundle_flush(meters, progress, args, names):
 
     def flush(item):
         base_i, n_sub, n_img, readback, _batches = item
-        m = readback.get()
-        dt = (time.time() - end[0]) / n_sub
-        for j in range(n_sub):
-            acc_s.update(float(m["acc_s"][j]), int(m["acc_cnt"][j]))
-            for meter, name in zip(loss_meters, names):
-                meter.update(float(m[name][j]), n_img)
-            batch_time.update(dt)
-            if (base_i + j) % args.print_freq == 0 and dist.is_primary():
-                progress.display(base_i + j)
-        end[0] = time.time()
+        with trace.span("engine.readback"):
+            m = readback.get()
+        with trace.span("engine.log"):
+            dt = (time.time() - end[0]) / n_sub
+            for j in range(n_sub):
+                acc_s.update(float(m["acc_s"][j]), int(m["acc_cnt"][j]))
+                for meter, name in zip(loss_meters, names):
+                    meter.update(float(m[name][j]), n_img)
+                batch_time.update(dt)
+                if (base_i + j) % args.print_freq == 0 and dist.is_primary():
+                    progress.display(base_i + j)
+            end[0] = time.time()
 
-    return flush, end
+    return flush
 
 
 def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, args, gate,
@@ -751,7 +763,7 @@ def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, ar
     fire carries zero style inputs, shaped as a fired one's or, before any
     fired, by ``pretrain_style_template``."""
     data_time = meters[1]
-    flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s"))
+    flush = _bundle_flush(meters, progress, args, ("loss_all", "loss_s"))
     dummy_style = _DummyStyle()
     style_tpl = None  # {style leaf: (shape, dtype)} once known
     pending = None
@@ -759,29 +771,35 @@ def _run_pretrain_epoch_bundled(state, bundler, source_iter, target_iter, lr, ar
     while i < args.iters_per_epoch:
         n_sub = min(n_bundle, args.iters_per_epoch - i)
         batches, gates, fired = [], [], []
+        fetched = 0.0
         for _ in range(n_sub):
-            src = next(source_iter)
-            do_s2t, alpha = gate.draw()
-            fired.append(style_enabled and do_s2t)
-            if device_aug is not None:
-                batches.append(device_aug.raw_pretrain_batch(
-                    src, next(target_iter) if fired[-1] else None))
-            else:
-                x_s, label_s, weight_s, _meta = src
-                image_t_style = None
-                if style_enabled:
-                    image_t_style = next(target_iter)[4][0] if do_s2t else dummy_style(x_s)
-                batches.append(make_source_batch(x_s, label_s, weight_s, image_t_style))
-            gates.append((do_s2t, alpha))
+            with trace.span("engine.fetch") as fetch:
+                src = next(source_iter)
+                do_s2t, alpha = gate.draw()
+                fired.append(style_enabled and do_s2t)
+                if device_aug is not None:
+                    batches.append(device_aug.raw_pretrain_batch(
+                        src, next(target_iter) if fired[-1] else None))
+                else:
+                    x_s, label_s, weight_s, _meta = src
+                    image_t_style = None
+                    if style_enabled:
+                        image_t_style = (next(target_iter)[4][0] if do_s2t
+                                         else dummy_style(x_s))
+                    batches.append(make_source_batch(x_s, label_s, weight_s, image_t_style))
+                gates.append((do_s2t, alpha))
+            fetched += fetch.seconds
         if device_aug is not None:
-            if style_enabled:
-                if style_tpl is None or not all(fired):
-                    style_tpl = _style_template(device_aug, batches, fired, style_tpl)
-                for b, f in zip(batches, fired):
-                    if not f:
-                        b.update(device_aug.style_zeros(style_tpl, b["canvas_s"]))
-            batches = _stack_host_leaves(batches)
-        data_time.update(time.time() - end[0])
+            with trace.span("engine.fetch") as fetch:
+                if style_enabled:
+                    if style_tpl is None or not all(fired):
+                        style_tpl = _style_template(device_aug, batches, fired, style_tpl)
+                    for b, f in zip(batches, fired):
+                        if not f:
+                            b.update(device_aug.style_zeros(style_tpl, b["canvas_s"]))
+                batches = _stack_host_leaves(batches)
+            fetched += fetch.seconds
+        data_time.update(fetched)
 
         do_s2t, alphas = zip(*gates)
         if device_aug is not None:
@@ -821,21 +839,26 @@ def _run_adapt_epoch_bundled(state, bundler, source_iter, target_iter, lr, args,
     iteration it fetches the source and the target, then draws s2t and t2s,
     as the unbundled loop does."""
     data_time = meters[1]
-    flush, end = _bundle_flush(meters, progress, args, ("loss_all", "loss_s", "loss_c"))
+    flush = _bundle_flush(meters, progress, args, ("loss_all", "loss_s", "loss_c"))
     pending = None
     i = 0
     while i < args.iters_per_epoch:
         n_sub = min(n_bundle, args.iters_per_epoch - i)
         batches, gates = [], []
+        fetched = 0.0
         for _ in range(n_sub):
-            src = next(source_iter)
-            tgt = next(target_iter)
-            batches.append(device_aug.raw_adapt_batch(src, tgt) if device_aug is not None
-                           else make_adapt_batch(src, tgt))
-            gates.append((*s2t.draw(), *t2s.draw()))
+            with trace.span("engine.fetch") as fetch:
+                src = next(source_iter)
+                tgt = next(target_iter)
+                batches.append(device_aug.raw_adapt_batch(src, tgt) if device_aug is not None
+                               else make_adapt_batch(src, tgt))
+                gates.append((*s2t.draw(), *t2s.draw()))
+            fetched += fetch.seconds
         if device_aug is not None:
-            batches = _stack_host_leaves(batches)
-        data_time.update(time.time() - end[0])
+            with trace.span("engine.fetch") as fetch:
+                batches = _stack_host_leaves(batches)
+            fetched += fetch.seconds
+        data_time.update(fetched)
 
         do_s2t, alpha_s2t, do_t2s, alpha_t2s = zip(*gates)
         state, metrics, _ = bundler(state, batches, lr, do_s2t, alpha_s2t, do_t2s,

@@ -46,6 +46,7 @@ then the same on every rank.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import warnings
@@ -65,6 +66,7 @@ from ..ops.affine import chain_coeffs, inverse_affine_coeffs, inverse_warp_heatm
 from ..ops.heatmap import get_max_preds, rectify
 from ..ops.occlusion_warp import occlusion_warp
 from ..ops.pck import pck_counts, pck_from_counts
+from ..utils import trace
 from . import distributed as dist
 
 
@@ -341,84 +343,85 @@ def make_adapt_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
              generator: Optional[torch.Generator] = None,
              occlusion_draws: Optional[Mapping] = None,
              view_draws: Optional[Mapping] = None):
-        batch = _to_device(batch, dev)
-        if view_builder is not None:
-            batch = view_builder(batch, generator=generator, draws=view_draws)
-        x_s = batch["image_s"]
-        x_t_stu = batch["image_t_stu"]
-        x_t_teas = batch["images_t_tea"]
-        aug_stu = batch["aug_param_stu"]
-        aug_teas = batch["aug_params_tea"]
-        label_s = batch["target_s"]
-        weight_s = batch["weight_s"]
-        student, teacher = state.student, state.teacher
-        student.train()
-        teacher.train()
+        with trace.span("adapt.step"):
+            batch = _to_device(batch, dev)
+            if view_builder is not None:
+                batch = view_builder(batch, generator=generator, draws=view_draws)
+            x_s = batch["image_s"]
+            x_t_stu = batch["image_t_stu"]
+            x_t_teas = batch["images_t_tea"]
+            aug_stu = batch["aug_param_stu"]
+            aug_teas = batch["aug_params_tea"]
+            label_s = batch["target_s"]
+            weight_s = batch["weight_s"]
+            student, teacher = state.student, state.teacher
+            student.train()
+            teacher.train()
 
-        # --- no-grad region: style transfer, teacher, occlusion -----------
-        with torch.no_grad():
-            if style_model is not None:
-                x_s, x_t_teas = _style_views(style_model, x_s, x_t_teas,
-                                             bool(do_s2t), alpha_s2t,
-                                             bool(do_t2s), alpha_t2s, cfg)
-            # k teacher forwards in train mode; running stats chain through
-            recons = [inverse_warp_heatmaps(teacher(_nchw(x_t_teas[i])),
-                                            aug_teas[i], cfg.ratio)
-                      for i in range(cfg.k)]
-            y_t_tea_recon = torch.stack(recons).mean(dim=0)
-            occlusion = None
-            if cfg.occlude_rate > -1:
-                b, k = y_t_tea_recon.shape[:2]
-                draws = occlusion_draws
-                if draws is None:  # the global batch's draws, this rank's rows
-                    draws = dist.global_draw(
-                        lambda n: draw_occlusion(n, k, dev, generator), b)
-                x_t_stu, do, rect = _occlude_batch(x_t_stu, y_t_tea_recon,
-                                                   aug_stu, cfg, draws)
-                occlusion = (do, rect)
-            # confidence mask: global kth-value over the (B*K) activations
-            # (train_human.py:427-430), every rank's rows under a group;
-            # kthvalue is 1-indexed like torch's
-            activates = y_t_tea_recon.amax(dim=(2, 3))  # (B, K)
-            y_t_tea_rect = rectify(y_t_tea_recon, cfg.sigma)
-            whole = dist.all_gather_rows(activates) if dist.is_active() else activates
-            kth = max(int(cfg.mask_ratio * whole.numel()), 1)
-            mask_thresh = torch.kthvalue(whole.reshape(-1), kth).values
-            tea_mask = activates > mask_thresh
+            # --- no-grad region: style transfer, teacher, occlusion -------
+            with torch.no_grad():
+                if style_model is not None:
+                    x_s, x_t_teas = _style_views(style_model, x_s, x_t_teas,
+                                                 bool(do_s2t), alpha_s2t,
+                                                 bool(do_t2s), alpha_t2s, cfg)
+                # k teacher forwards in train mode; running stats chain through
+                recons = [inverse_warp_heatmaps(teacher(_nchw(x_t_teas[i])),
+                                                aug_teas[i], cfg.ratio)
+                          for i in range(cfg.k)]
+                y_t_tea_recon = torch.stack(recons).mean(dim=0)
+                occlusion = None
+                if cfg.occlude_rate > -1:
+                    b, k = y_t_tea_recon.shape[:2]
+                    draws = occlusion_draws
+                    if draws is None:  # the global batch's draws, this rank's rows
+                        draws = dist.global_draw(
+                            lambda n: draw_occlusion(n, k, dev, generator), b)
+                    x_t_stu, do, rect = _occlude_batch(x_t_stu, y_t_tea_recon,
+                                                       aug_stu, cfg, draws)
+                    occlusion = (do, rect)
+                # confidence mask: global kth-value over the (B*K) activations
+                # (train_human.py:427-430), every rank's rows under a group;
+                # kthvalue is 1-indexed like torch's
+                activates = y_t_tea_recon.amax(dim=(2, 3))  # (B, K)
+                y_t_tea_rect = rectify(y_t_tea_recon, cfg.sigma)
+                whole = dist.all_gather_rows(activates) if dist.is_active() else activates
+                kth = max(int(cfg.mask_ratio * whole.numel()), 1)
+                mask_thresh = torch.kthvalue(whole.reshape(-1), kth).values
+                tea_mask = activates > mask_thresh
 
-        # --- grad region: student forwards + losses ------------------------
-        y_s = student(_nchw(x_s))
-        y_t_stu = student(_nchw(x_t_stu))
-        y_t_stu_recon = inverse_warp_heatmaps(y_t_stu, aug_stu, cfg.ratio)
-        loss_s = joints_mse_loss(y_s, label_s, weight_s[..., 0])
-        loss_c = cons_loss(y_t_stu_recon, y_t_tea_rect, tea_mask=tea_mask)
-        loss_all = loss_s + cfg.lambda_c * loss_c
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_all.backward()
-        _average_grads(student)
-        grads = ({n: p.grad.detach().clone() for n, p in student.named_parameters()}
-                 if cfg.aux_outputs else None)
-        _set_lr(state.optimizer, lr)
-        state.optimizer.step()
-        ema_update(teacher, student, cfg.teacher_alpha)
+            # --- grad region: student forwards + losses --------------------
+            y_s = student(_nchw(x_s))
+            y_t_stu = student(_nchw(x_t_stu))
+            y_t_stu_recon = inverse_warp_heatmaps(y_t_stu, aug_stu, cfg.ratio)
+            loss_s = joints_mse_loss(y_s, label_s, weight_s[..., 0])
+            loss_c = cons_loss(y_t_stu_recon, y_t_tea_rect, tea_mask=tea_mask)
+            loss_all = loss_s + cfg.lambda_c * loss_c
+            state.optimizer.zero_grad(set_to_none=True)
+            loss_all.backward()
+            _average_grads(student)
+            grads = ({n: p.grad.detach().clone() for n, p in student.named_parameters()}
+                     if cfg.aux_outputs else None)
+            _set_lr(state.optimizer, lr)
+            state.optimizer.step()
+            ema_update(teacher, student, cfg.teacher_alpha)
 
-        y_s = y_s.detach()
-        losses, (_, acc_avg, acc_cnt) = _metrics(
-            {"loss_all": loss_all, "loss_s": loss_s, "loss_c": loss_c}, y_s, label_s)
-        metrics = {**losses, "acc_s": acc_avg, "acc_cnt": acc_cnt}
-        if cfg.aux_outputs:
-            metrics["aux"] = {
-                "x_s_styled": x_s, "x_t_teas_styled": x_t_teas,
-                "x_t_stu_final": x_t_stu,
-                "y_t_tea_recon": y_t_tea_recon, "y_t_tea_rect": y_t_tea_rect,
-                "activates": activates, "mask_thresh": mask_thresh,
-                "tea_mask": tea_mask, "y_t_stu_recon": y_t_stu_recon.detach(),
-                "grads": grads,
-            }
-            if occlusion is not None:
-                metrics["aux"]["occlude"], metrics["aux"]["occlusion_rect"] = occlusion
-        state.step += 1
-        return state, metrics, y_s
+            y_s = y_s.detach()
+            losses, (_, acc_avg, acc_cnt) = _metrics(
+                {"loss_all": loss_all, "loss_s": loss_s, "loss_c": loss_c}, y_s, label_s)
+            metrics = {**losses, "acc_s": acc_avg, "acc_cnt": acc_cnt}
+            if cfg.aux_outputs:
+                metrics["aux"] = {
+                    "x_s_styled": x_s, "x_t_teas_styled": x_t_teas,
+                    "x_t_stu_final": x_t_stu,
+                    "y_t_tea_recon": y_t_tea_recon, "y_t_tea_rect": y_t_tea_rect,
+                    "activates": activates, "mask_thresh": mask_thresh,
+                    "tea_mask": tea_mask, "y_t_stu_recon": y_t_stu_recon.detach(),
+                    "grads": grads,
+                }
+                if occlusion is not None:
+                    metrics["aux"]["occlude"], metrics["aux"]["occlusion_rect"] = occlusion
+            state.step += 1
+            return state, metrics, y_s
 
     return step
 
@@ -441,31 +444,32 @@ def make_pretrain_step(cfg: StepConfig, style_model: Optional[StyleNet] = None,
     def step(state: UDAState, batch: Mapping, lr: float, do_s2t: bool = False,
              alpha: float = 1.0, generator: Optional[torch.Generator] = None,
              view_draws: Optional[Mapping] = None):
-        batch = _to_device(batch, dev)
-        if view_builder is not None:
-            batch = view_builder(batch, bool(do_s2t), generator=generator,
-                                 draws=view_draws)
-        x_s = _nchw(batch["image_s"])
-        if style_model is not None and do_s2t:
-            with torch.no_grad():
-                x_s = _clamp_styled(style_model.stylize(
-                    x_s, _nchw(batch["image_t_style"]), alpha), cfg)
-        label_s = batch["target_s"]
-        student = state.student
-        student.train()
-        y_s = student(x_s)
-        loss = joints_mse_loss(y_s, label_s, batch["weight_s"][..., 0])
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        _average_grads(student)
-        _set_lr(state.optimizer, lr)
-        state.optimizer.step()
-        y_s = y_s.detach()
-        losses, (_, acc_avg, acc_cnt) = _metrics({"loss": loss}, y_s, label_s)
-        metrics = {"loss_all": losses["loss"], "loss_s": losses["loss"], "acc_s": acc_avg,
-                   "acc_cnt": acc_cnt}
-        state.step += 1
-        return state, metrics, y_s
+        with trace.span("pretrain.step"):
+            batch = _to_device(batch, dev)
+            if view_builder is not None:
+                batch = view_builder(batch, bool(do_s2t), generator=generator,
+                                     draws=view_draws)
+            x_s = _nchw(batch["image_s"])
+            if style_model is not None and do_s2t:
+                with torch.no_grad():
+                    x_s = _clamp_styled(style_model.stylize(
+                        x_s, _nchw(batch["image_t_style"]), alpha), cfg)
+            label_s = batch["target_s"]
+            student = state.student
+            student.train()
+            y_s = student(x_s)
+            loss = joints_mse_loss(y_s, label_s, batch["weight_s"][..., 0])
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            _average_grads(student)
+            _set_lr(state.optimizer, lr)
+            state.optimizer.step()
+            y_s = y_s.detach()
+            losses, (_, acc_avg, acc_cnt) = _metrics({"loss": loss}, y_s, label_s)
+            metrics = {"loss_all": losses["loss"], "loss_s": losses["loss"], "acc_s": acc_avg,
+                       "acc_cnt": acc_cnt}
+            state.step += 1
+            return state, metrics, y_s
 
     return step
 
@@ -523,6 +527,14 @@ def _fingerprint(state: UDAState) -> tuple:
             *(t.data_ptr() for t in tensors))
 
 
+def _why(old, new) -> str:
+    """Which part of a bundler's key, (lr, generator, fingerprint), moved
+    from ``old`` to ``new``."""
+    if old is None:
+        return "first"
+    return next(why for why, a, b in zip(("lr", "generator", "state"), old, new) if a != b)
+
+
 class _StagedSteps:
     """n calls of one step, in order, each through static inputs: the batch,
     the alphas and the given occlusion draws are copied into buffers that
@@ -546,15 +558,22 @@ class _StagedSteps:
     errors raise; nothing falls back to the eager step.
 
     ``eager_steps``, ``captures`` and ``replays`` count what ran; ``tallies``
-    holds each graph's kernel launches per replay (``ops/launches.py``).
+    holds each graph's kernel launches per replay (``ops/launches.py``);
+    ``reset_reasons`` counts why the graphs were dropped: ``first`` (the
+    first call on the card), ``lr``, ``generator``, ``state`` (its
+    hyper-parameters or tensors), ``buffer`` (a static input of another
+    shape or type). Each call's staging, warm-up, capture and replay is a
+    span (``utils/trace.py``).
     """
 
     def __init__(self, step, device: DeviceLike):
         self._step = step
         self.device = resolve_device(device)
         self.eager_steps = self.captures = self.replays = 0
+        self.reset_reasons = collections.Counter()
         self._stream = None
         self._static = {}
+        self._restaged = False
         self._key = None
         self.reset()
 
@@ -577,6 +596,8 @@ class _StagedSteps:
                                  else None)
         buf = self._static.get(name)
         if buf is None or buf.shape != value.shape or buf.dtype != value.dtype:
+            # a buffer changed, or a new one came once something was built
+            self._restaged |= buf is not None or bool(self._graphs or self._warm)
             buf = self._static[name] = torch.empty(value.shape, dtype=value.dtype,
                                                    device=self.device)
             self.reset()
@@ -601,22 +622,31 @@ class _StagedSteps:
                 "gloo's collectives cannot be captured in a CUDA graph")
         if cuda:
             make_capturable(state.optimizer)
-            if (float(lr), generator, _fingerprint(state)) != self._key:
+            key = (float(lr), generator, _fingerprint(state))
+            if key != self._key:
+                self.reset_reasons[_why(self._key, key)] += 1
                 self.reset()
         outs, y_s = [], None
         for staged_inputs, case in zip(inputs, cases):
-            static = {k: (self._stage_tree(k, v) if isinstance(v, Mapping)
-                          else self._stage(k, v))
-                      for k, v in staged_inputs.items() if v is not None}
+            self._restaged = False
+            with trace.span("bundler.stage"):
+                static = {k: (self._stage_tree(k, v) if isinstance(v, Mapping)
+                              else self._stage(k, v))
+                          for k, v in staged_inputs.items() if v is not None}
+            if self._restaged:
+                self.reset_reasons["buffer"] += 1
             if not cuda:
                 _, metrics, y_s = self._invoke(state, static, lr, case, generator)
                 self.eager_steps += 1
             elif case not in self._warm:
-                metrics, y_s = self._warm_up(state, static, lr, case, generator)
+                with trace.span("bundler.warm_up"):
+                    metrics, y_s = self._warm_up(state, static, lr, case, generator)
             else:
                 if case not in self._graphs:
-                    self._capture(state, static, lr, case, generator)
-                metrics, y_s = self._replay(state, case)
+                    with trace.span("bundler.capture"):
+                        self._capture(state, static, lr, case, generator)
+                with trace.span("bundler.replay"):
+                    metrics, y_s = self._replay(state, case)
             # a graph's outputs are rewritten by its next replay
             outs.append(_tree_map(torch.clone, metrics))
         if cuda:  # after the run: its first step may have made the optimizer's state
