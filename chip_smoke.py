@@ -1309,6 +1309,20 @@ def _deterministic():
                                       allow_tf32=False)
 
 
+@contextlib.contextmanager
+def _eager_decoder():
+    """The decoder loop without its CUDA graph: every step an eager warm-up
+    and Adam not capturable, as a process group's rank steps."""
+    from uda_poseestimation_torch import adain_engine
+
+    saved = adain_engine.WARM_UP_STEPS, adain_engine.make_capturable
+    adain_engine.WARM_UP_STEPS, adain_engine.make_capturable = sys.maxsize, lambda opt: None
+    try:
+        yield
+    finally:
+        adain_engine.WARM_UP_STEPS, adain_engine.make_capturable = saved
+
+
 def _held_against_eager(device, state, style, host, view_builder=None, sync_check=False):
     """For each of the four (do_s2t, do_t2s) cases, from one copied state:
     the bundler's graph replay against the unbundled eager step, under
@@ -3348,11 +3362,12 @@ def phase_decoder(device, work_dir):
          "--log_img_interval", "10", "--exp_name", exp, "--device", str(device)]
         + _cli_aug_flags())
     step_stamps, waits = [], []
-    make_step, forever = adain_engine.make_decoder_step, adain_cli.ForeverDataIterator
+    # the loop's step calls (a CUDA graph's replay after the warm-up)
+    step_call, forever = adain_engine.DecoderStepGraph.__call__, adain_cli.ForeverDataIterator
 
-    def timed_make_step(*a, **k):
-        step, opt = make_step(*a, **k)
-        return clocked(step, step_stamps), opt
+    def timed_call(self, *a, **k):
+        step_stamps.append(time.perf_counter())
+        return step_call(self, *a, **k)
 
     class TimedIterator(forever):
         def __next__(self):
@@ -3362,7 +3377,7 @@ def phase_decoder(device, work_dir):
             return out
 
     cwd = os.getcwd()
-    adain_engine.make_decoder_step = timed_make_step
+    adain_engine.DecoderStepGraph.__call__ = timed_call
     adain_cli.ForeverDataIterator = TimedIterator
     os.chdir(work_dir)
     try:
@@ -3431,7 +3446,7 @@ def phase_decoder(device, work_dir):
               "wall_s": chain_wall, "launches": launches["decoder_chain"], "log": chain_lines})
     finally:
         os.chdir(cwd)
-        adain_engine.make_decoder_step, adain_cli.ForeverDataIterator = make_step, forever
+        adain_engine.DecoderStepGraph.__call__, adain_cli.ForeverDataIterator = step_call, forever
     emit({"phase": "decoder", "seconds": time.perf_counter() - t0})
     return launches
 
@@ -4788,8 +4803,9 @@ def _decoder_run_files(run_dir, exp):
 def _variants_decoder_ranks(device, work_dir, meanwhile):
     """Part (a), A12b: (a1) the human decoder CLI through the launcher at
     one NCCL rank (``decoder_child``) and, meanwhile, the same CLI in this
-    process without a group, torch's generator seeded 0 as a group seeds
-    it, both under deterministic cuDNN with TF32 off: the log, the PNGs and
+    process without a group and without its CUDA graph (``_eager_decoder``),
+    torch's generator seeded 0 as a group seeds it, both under
+    deterministic cuDNN with TF32 off: the log, the PNGs and
     the checkpoint equal bit for bit (at one rank the gradient all-reduce is
     an identity); (a2) VARIANT_DECODER_RANKS spawned ranks sharing cuda:0
     over gloo, one SGD decoder step on their rows of the b=4 batch, against
@@ -4833,7 +4849,8 @@ def _variants_decoder_ranks(device, work_dir, meanwhile):
         os.chdir(one_dir)
         try:
             printed = io.StringIO()
-            with contextlib.redirect_stdout(printed), _deterministic():
+            # eager, as the rank: the graph's capturable Adam rounds otherwise
+            with contextlib.redirect_stdout(printed), _deterministic(), _eager_decoder():
                 _reset_counts()
                 torch.manual_seed(0)
                 adain_cli.main(adain_cli.build_parser().parse_args(

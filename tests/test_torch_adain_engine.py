@@ -21,6 +21,14 @@ adain_engine`` and ``adain/train_human.py``) against the JAX package's
   ``decoder.fetch`` and ``decoder.step`` an iteration, the flush's
   ``decoder.log`` and the checkpoint's ``decoder.save``, none inside
   another (on the CPU no readback waits: ``decoder.readback`` is the card's).
+- The step's CUDA graph (``DecoderStepGraph``): on the CPU every iteration
+  runs eagerly, with no warm-up, capture or replay span; what a graph holds
+  (``_held``) moves with the learning rate and an optimizer restore, not
+  with a step or a decoder restore; and, marked ``gpu``, the loop graphed
+  on the card (3 eager warm-ups, a capture, 9 replays) against the same
+  loop with every iteration eager from the same weights, batches and numpy
+  seed: the log lines, PNGs and trained decoder equal bit for bit, and a
+  replay after the learning rate moved raises.
 - The CLI's parser has every flag and default of JAX's, plus ``--device``
   and the trainers' ``--dist-*`` flags;
   ``main`` runs on tiny fake RHD and H3D trees with ``--device cpu``, and
@@ -37,9 +45,13 @@ within 1e-4 of each tensor's largest entry (5e-6); the Adam update within
 relative over 6 Adam steps (2e-6), the checkpoint's decoder update within
 1e-3 in norm (4e-5); the PNG's stylized third within one grey level (a
 truncation to uint8).
+
+JAX is imported inside the tests that use it, so that the card test runs
+where only PyTorch is installed (``-m gpu --noconftest``).
 """
 
 import argparse
+import copy
 import os
 import re
 import subprocess
@@ -47,21 +59,12 @@ import sys
 import time
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 from PIL import Image
 
-from adain.train import train_human as jcli
-from test_torch_human_datasets import h3d_root  # noqa: F401 (fixture)
-from test_torch_style_net import style_params
 from tools.make_fixtures import make_rhd
-from tools.port_torch_weights import load_style_net_params
-from uda_poseestimation_tpu import adain_engine as jengine
-from uda_poseestimation_tpu.models import StyleNet as JStyleNet
 from uda_poseestimation_torch import adain_engine as tengine
 from uda_poseestimation_torch import weights
 from uda_poseestimation_torch.adain import train_human as tcli
@@ -84,10 +87,23 @@ def _images(seed=7, b=2):
 
 @pytest.fixture(scope="module")
 def params():
+    from test_torch_style_net import style_params
+
     return style_params()
 
 
+@pytest.fixture(scope="module")
+def h3d_root(tmp_path_factory):
+    from test_torch_human_datasets import write_h3d
+
+    return write_h3d(tmp_path_factory.mktemp("h3d"))
+
+
 def _jax_step(params, tx, content, style):
+    import jax
+
+    from uda_poseestimation_tpu import adain_engine as jengine
+
     step, tx = jengine.make_decoder_step(1.0, 2.0, 1e-3, tx=tx)
     dec, _, loss, loss_c, loss_s, g_t = step(params["decoder"], tx.init(params["decoder"]),
                                              params["encoder"], content, style)
@@ -107,6 +123,8 @@ def _updates(new, old):
 
 
 def test_sgd_decoder_step_matches_jax(params):
+    import optax
+
     content, style = _images()
     want_dec, want_losses = _jax_step(params, optax.sgd(1e-1), content, style)
     net, step = _port_step(params, torch.optim.SGD, lr=1e-1)
@@ -194,6 +212,13 @@ def _decoder_training(run, tmp_path, monkeypatch, name, **kwargs):
 
 
 def test_run_decoder_training_matches_jax(params, tmp_path, monkeypatch):
+    import jax
+    import jax.numpy as jnp
+
+    from tools.port_torch_weights import load_style_net_params
+    from uda_poseestimation_tpu import adain_engine as jengine
+    from uda_poseestimation_tpu.models import StyleNet as JStyleNet
+
     vgg = tmp_path / "vgg_normalised.pth"
     torch.save({k: torch.tensor(v) for k, v in
                 weights.vgg_state_dict(params["encoder"]).items()}, str(vgg))
@@ -275,6 +300,142 @@ def test_decoder_loop_spans_lie_side_by_side(tmp_path, monkeypatch):
     assert os.path.exists("logs/t/ckpt/decoder_t.pth.tar")
 
 
+def test_decoder_loop_never_captures_on_the_cpu(tmp_path, monkeypatch):
+    """On the CPU the step wrapper runs every iteration eagerly: it counts
+    ``max_iter`` eager steps, and the loop opens no warm-up, capture or
+    replay span."""
+    monkeypatch.chdir(tmp_path)
+    args = argparse.Namespace(exp_name="t", save_model_dir="ckpt", vgg=None, lr=1e-4,
+                              content_weight=1.0, style_weight=1.0, max_iter=4,
+                              log_img_interval=2, save_model_interval=10)
+    np.random.seed(0)
+    t0 = time.perf_counter_ns()
+    step = tengine.run_decoder_training(args, _batches(1), _batches(2), lambda x: x,
+                                        device="cpu")
+    assert not step.graphed
+    assert (step.eager_steps, step.captures, step.replays) == (4, 0, 0)
+    counts = trace.counters(t0)
+    assert counts["decoder.step"][0] == 4
+    assert not {"decoder.warm_up", "decoder.capture", "decoder.replay"} & set(counts)
+    assert len(open("logs/t/log_t.txt").read().splitlines()) == 4
+
+
+def test_held_sees_what_the_decoder_graph_holds():
+    """What a captured decoder step holds moves with the learning rate, a
+    hyper-parameter and an optimizer restore (which replaces Adam's state
+    tensors), and not with a step's in-place update or a decoder restore's
+    copy into its parameters."""
+    net = StyleNet("meanstd")
+    net.reset_parameters(torch.Generator().manual_seed(3))
+    step, optimizer = tengine.make_decoder_step(net, 1.0, 1.0, 1e-4)
+    content, style = (_nchw(x) for x in _images(seed=10))
+    step(content, style)
+    first = tengine._held(optimizer)
+    step(content, style)
+    assert tengine._held(optimizer) == first
+    net.decoder.load_state_dict(copy.deepcopy(net.decoder.state_dict()))
+    assert tengine._held(optimizer) == first
+    optimizer.param_groups[0]["lr"] = 2e-4
+    assert tengine._held(optimizer) != first
+    optimizer.param_groups[0]["lr"] = 1e-4
+    optimizer.param_groups[0]["betas"] = (0.8, 0.999)
+    assert tengine._held(optimizer) != first
+    optimizer.param_groups[0]["betas"] = (0.9, 0.999)
+    assert tengine._held(optimizer) == first
+    optimizer.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+    assert tengine._held(optimizer) != first
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    return torch.device("cuda")
+
+
+def _pinned_batches(seed, b=4, size=64):
+    """NHWC float32 batches in page-locked memory, as the card's loaders
+    give them."""
+    rng = np.random.RandomState(seed)
+    while True:
+        yield torch.from_numpy(rng.rand(b, size, size, 3).astype(np.float32)).pin_memory()
+
+
+def _card_run(root, monkeypatch, warm_up, vgg, decoder_state):
+    """``run_decoder_training`` on the card for 12 iterations under
+    ``root``, with ``WARM_UP_STEPS`` at ``warm_up``, under deterministic
+    cuDNN (TF32 on, PyTorch's default); returns the step wrapper and the
+    run's span counts."""
+    monkeypatch.setattr(tengine, "WARM_UP_STEPS", warm_up)
+    os.makedirs(root)
+    monkeypatch.chdir(root)
+    np.random.seed(0)
+    args = argparse.Namespace(exp_name="g", save_model_dir="ckpt", vgg=vgg, lr=1e-4,
+                              content_weight=1.0, style_weight=1.0, max_iter=12,
+                              log_img_interval=5, save_model_interval=100)
+    t0 = time.perf_counter_ns()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=True):
+        step = tengine.run_decoder_training(
+            args, _pinned_batches(1), _pinned_batches(2), tcli.denormalize,
+            get_target_view=lambda t: t, get_source_image=lambda s: s,
+            decoder_state=decoder_state, device="cuda")
+        torch.cuda.synchronize()
+    return step, {n: c for n, (c, _) in trace.counters(t0).items()}
+
+
+@pytest.mark.gpu
+def test_graphed_decoder_loop_matches_eager_loop_on_card(cuda, tmp_path, monkeypatch):
+    """The loop on the card replays its step from one CUDA graph after 3
+    eager warm-ups: its log lines, the PNGs of iterations 0, 5 and 10 (5
+    and 10 replays) and the decoder after 12 iterations equal bit for bit
+    those of the same loop with every iteration eager (the same kernels and
+    the same capturable Adam). A replay after the learning rate moved
+    raises, as does a batch of another shape."""
+    style = StyleNet("meanstd")
+    style.reset_parameters(torch.Generator().manual_seed(4))
+    with torch.no_grad():  # a random decoder's output is ~1e-3 (module docstring)
+        style.decoder[-1].weight.mul_(100.0)
+    vgg = str(tmp_path / "vgg.pth")
+    torch.save(style.encoder.state_dict(), vgg)
+    dec = style.decoder.state_dict()
+    graphed, counts = _card_run(tmp_path / "graphed", monkeypatch, 3, vgg, dec)
+    eager, eager_counts = _card_run(tmp_path / "eager", monkeypatch, 12, vgg, dec)
+
+    assert graphed.graphed and eager.graphed
+    assert (graphed.eager_steps, graphed.captures, graphed.replays) == (3, 1, 9)
+    assert (eager.eager_steps, eager.captures, eager.replays) == (12, 0, 0)
+    assert {n: counts.get(n) for n in ("decoder.step", "decoder.warm_up", "decoder.capture",
+                                       "decoder.replay")} == \
+        {"decoder.step": 12, "decoder.warm_up": 3, "decoder.capture": 1, "decoder.replay": 9}
+    assert eager_counts["decoder.warm_up"] == 12 and "decoder.replay" not in eager_counts
+
+    logs = [(tmp_path / side / "logs/g/log_g.txt").read_text().splitlines()
+            for side in ("graphed", "eager")]
+    assert len(logs[0]) == 12 and logs[0] == logs[1]
+    pngs = "logs/g/save_imgs/save_img_g"
+    assert sorted(os.listdir(tmp_path / "graphed" / pngs)) == ["0.png", "10.png", "5.png"]
+    for name in ("0.png", "5.png", "10.png"):
+        assert (tmp_path / "graphed" / pngs / name).read_bytes() == \
+            (tmp_path / "eager" / pngs / name).read_bytes(), name
+    got, want = (torch.load(str(tmp_path / side / "logs/g/ckpt/decoder_g.pth.tar"),
+                            weights_only=True) for side in ("graphed", "eager"))
+    assert list(got) == list(dec)
+    for k in dec:
+        assert torch.equal(got[k], want[k]), k
+        assert not torch.equal(got[k], dec[k].cpu()), k  # the decoder trained
+
+    monkeypatch.setattr(tengine, "WARM_UP_STEPS", 3)  # the graphed run's
+    batch = next(_pinned_batches(3))
+    graphed._optimizer.param_groups[0]["lr"] = 2e-4
+    with pytest.raises(RuntimeError, match="at its capture"):
+        graphed(batch, batch)
+    graphed._optimizer.param_groups[0]["lr"] = 1e-4
+    with pytest.raises(ValueError, match="static batches"):
+        graphed(batch[:2], batch[:2])
+    assert graphed.replays == 9
+
+
 def test_encoder_fallback_is_random_and_seeded(tmp_path, capsys):
     a = tengine.load_encoder_params(str(tmp_path / "missing.pth"))
     assert "WARNING: vgg weights not found" in capsys.readouterr().out
@@ -306,6 +467,8 @@ def _actions(parser):
 
 
 def test_parser_matches_jax():
+    from adain.train import train_human as jcli
+
     jact, tact = _actions(jcli.build_parser()), _actions(tcli.build_parser())
     assert set(tact) - set(jact) == {"device", "dist_coordinator", "dist_num_processes",
                                      "dist_process_id"} and set(jact) <= set(tact)

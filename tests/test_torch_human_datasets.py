@@ -86,10 +86,9 @@ def assert_packages_agree(make, n_items=12, batch=4, seed=11,
 # Hand-3D-Studio
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def h3d_root(tmp_path_factory):
-    """12 square frames, every other one with an object (test_more_datasets)."""
-    root = tmp_path_factory.mktemp("h3d")
+def write_h3d(root):
+    """12 square frames under ``root`` (a ``pathlib.Path``), every other one
+    with an object (test_more_datasets); returns ``root`` as a string."""
     crop = root / "H3D_crop"
     (crop / "part1").mkdir(parents=True)
     rng = np.random.RandomState(3)
@@ -106,6 +105,11 @@ def h3d_root(tmp_path_factory):
         })
     (crop / "annotation.json").write_text(json.dumps(samples))
     return str(root)
+
+
+@pytest.fixture(scope="module")
+def h3d_root(tmp_path_factory):
+    return write_h3d(tmp_path_factory.mktemp("h3d"))
 
 
 @pytest.mark.parametrize("task", ["noobject", "object", "all"])

@@ -29,6 +29,28 @@ the global means; rank 0 starts the decoder (broadcast to the others) and
 writes the log, the PNGs (global row 0 is its row 0) and the checkpoint.
 The global batch must split evenly over the ranks: otherwise the CLI exits
 naming the largest count that does, as JAX picks the largest mesh.
+
+On the card, with no process group active, the loop replays the step from
+one CUDA graph (``DecoderStepGraph``): the NHWC->NCHW permutes, the three
+encodes, AdaIN, the decode, the losses, the backward and Adam's update, so
+that the host enqueues one replay an iteration instead of ~700 launches.
+The first ``WARM_UP_STEPS`` iterations run eagerly on a side stream (they
+make Adam's state, cuDNN's plans and the allocator's blocks), the next
+captures the step and replays it, and every later one replays. Adam is made
+capturable (its step count on the card) before the first step, so eager and
+replayed steps run the same arithmetic. On the CPU, and under a process
+group (whose all-reduce no card test captures yet), every step runs eagerly,
+as ``make_decoder_step`` gives it. The graph holds the learning rate, the
+optimizer's other hyper-parameters and the storage of the decoder's
+parameters and of Adam's state as they were at its capture (the loop never
+changes them: the reference's lr decay is never applied); a replay after
+any of them moved raises, and nothing falls back to the eager step.
+
+Spans (``utils/trace.py``), inside the loop's ``decoder.step``:
+``decoder.warm_up``, ``decoder.capture`` and ``decoder.replay``, one per
+eager warm-up, capture and replay on the card (none elsewhere). The step's
+counters ``eager_steps``, ``captures`` and ``replays`` say what ran;
+``run_decoder_training`` returns the step, counters and all.
 """
 
 from __future__ import annotations
@@ -36,6 +58,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import warnings
 import zlib
 from pathlib import Path
 from typing import Mapping, Optional
@@ -47,6 +70,7 @@ from PIL import Image
 from .device import DeviceLike, resolve_device
 from .models.style_net import StyleNet, VGGEncoder, reset_conv_parameters
 from .parallel import distributed as dist
+from .parallel.train_step import make_capturable
 from .utils import trace
 from .weights import load_by_key
 
@@ -102,6 +126,115 @@ def make_decoder_step(style_net: StyleNet, content_weight: float, style_weight: 
         return (*losses.unbind(), g_t.detach())
 
     return step, optimizer
+
+
+# eager iterations on the card before the decoder step is captured
+WARM_UP_STEPS = 3
+
+
+def _held(optimizer: torch.optim.Optimizer) -> tuple:
+    """What a captured decoder step holds as it was at its capture: the
+    optimizer's hyper-parameters (the learning rate among them) and the
+    storage that the step reads and writes in place, the parameters' and
+    the optimizer state's (a ``load_state_dict`` of the optimizer replaces
+    its state tensors; one of the decoder copies into its parameters)."""
+    groups = tuple(tuple((k, v) for k, v in g.items() if k != "params")
+                   for g in optimizer.param_groups)
+    tensors = [p for g in optimizer.param_groups for p in g["params"]]
+    tensors += [v for st in optimizer.state.values() for v in st.values()
+                if isinstance(v, torch.Tensor)]
+    return groups, tuple(t.data_ptr() for t in tensors)
+
+
+class DecoderStepGraph:
+    """The step of ``make_decoder_step`` (with its ``optimizer``) on NHWC
+    float32 host batches, the loaders' layout: ``step_graph(content,
+    style)`` returns what the step returns, ``loss``, ``loss_c``,
+    ``loss_s`` and ``g_t`` on the device, without a sync.
+
+    On the card with no process group active the batches are copied into
+    static device buffers (``copy_(non_blocking=True)``, from the loaders'
+    pinned memory) and the step, permutes included, runs from them: eagerly
+    on a side stream for the first ``WARM_UP_STEPS`` calls, then captured
+    into one CUDA graph and replayed (module docstring). Its outputs are
+    then the graph's static outputs, rewritten by the next replay (which the
+    stream orders after any copy of them). Elsewhere each call copies the
+    batches to the device (under a process group the rank's rows of them),
+    permutes them to NCHW and runs the step eagerly.
+
+    ``eager_steps``, ``captures`` and ``replays`` count what ran.
+    """
+
+    def __init__(self, step, optimizer: torch.optim.Optimizer, device: DeviceLike = None):
+        self._step, self._optimizer = step, optimizer
+        self.device = resolve_device(device)
+        self.graphed = self.device.type == "cuda" and not dist.is_active()
+        self.eager_steps = self.captures = self.replays = 0
+        self._static = self._graph = self._out = self._key = None
+        if self.graphed:
+            make_capturable(optimizer)  # before Adam makes its state
+            self._stream = torch.cuda.Stream(self.device)
+
+    def __call__(self, content: torch.Tensor, style: torch.Tensor):
+        if not self.graphed:
+            rows = dist.local_rows(len(content)) if dist.is_active() else slice(None)
+            self.eager_steps += 1
+            return self._step(*(x[rows].to(self.device, non_blocking=True)
+                                .permute(0, 3, 1, 2).contiguous() for x in (content, style)))
+        self._stage(content, style)
+        if self.eager_steps < WARM_UP_STEPS:
+            with trace.span("decoder.warm_up"):
+                return self._warm_up()
+        if self._graph is None:
+            with trace.span("decoder.capture"):
+                self._capture()
+        with trace.span("decoder.replay"):
+            return self._replay()
+
+    def _stage(self, content, style):
+        if self._static is None:
+            self._static = tuple(torch.empty(x.shape, dtype=torch.float32, device=self.device)
+                                 for x in (content, style))
+        for buf, x in zip(self._static, (content, style)):
+            if x.shape != buf.shape:
+                raise ValueError(f"the decoder step's static batches are "
+                                 f"{tuple(buf.shape)}; got {tuple(x.shape)}")
+            buf.copy_(x, non_blocking=True)
+
+    def _invoke(self):
+        return self._step(*(x.permute(0, 3, 1, 2).contiguous() for x in self._static))
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._stream
+
+    def _warm_up(self):
+        with torch.cuda.stream(self._side_stream()), warnings.catch_warnings():
+            # a capturable Adam warns when it steps outside a capture, as here
+            warnings.filterwarnings("ignore", message=".*capturable=True")
+            out = self._invoke()
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        self.eager_steps += 1
+        return out
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's pin-memory thread keeps calling CUDA
+        with torch.cuda.graph(graph, stream=self._side_stream(),
+                              capture_error_mode="thread_local"):
+            self._out = self._invoke()
+        self._graph, self._key = graph, _held(self._optimizer)
+        self.captures += 1
+
+    def _replay(self):
+        if _held(self._optimizer) != self._key:
+            raise RuntimeError(
+                "the decoder step's CUDA graph holds the learning rate, the optimizer's "
+                "hyper-parameters and the storage of the parameters and of its state as "
+                "they were at its capture, and one of them has changed since")
+        self._graph.replay()
+        self.replays += 1
+        return self._out
 
 
 def save_side_by_side(path, g_t, content, style_img, denormalize):
@@ -173,7 +306,8 @@ def run_decoder_training(args, source_iter, target_iter, denormalize,
     ``decoder_state`` (a decoder state dict), else from the lecun-normal
     init of a generator seeded 0. Runs on ``device``, the card by default.
     Under a process group (module docstring) each rank runs its rows of
-    every batch and rank 0 alone writes files.
+    every batch and rank 0 alone writes files. Returns the
+    ``DecoderStepGraph`` that ran the steps.
     """
     device = resolve_device(device)
     primary = dist.is_primary()
@@ -196,7 +330,8 @@ def run_decoder_training(args, source_iter, target_iter, denormalize,
         style.decoder.load_state_dict(decoder_state)
     style.to(device)
     dist.broadcast_modules(style.decoder)  # rank 0's start under a group
-    step, _ = make_decoder_step(style, args.content_weight, args.style_weight, args.lr)
+    step = DecoderStepGraph(*make_decoder_step(style, args.content_weight,
+                                               args.style_weight, args.lr), device)
     if dist.is_multiprocess() and primary:
         print(f"decoder training sharded over {dist.process_count()} devices")
 
@@ -236,11 +371,8 @@ def run_decoder_training(args, source_iter, target_iter, denormalize,
                 content_images, style_images = source_image, target_image
             else:
                 content_images, style_images = target_image, source_image
-            rows = dist.local_rows(len(content_images)) if dist.is_active() else slice(None)
-            content_d, style_d = (x[rows].to(device, non_blocking=True).permute(0, 3, 1, 2)
-                                  .contiguous() for x in (content_images, style_images))
         with trace.span("decoder.step"):
-            losses_d = step(content_d, style_d)
+            losses_d = step(content_images, style_images)
             losses = [x.to("cpu", non_blocking=True) for x in losses_d[:3]]
             image = (losses_d[3][0].to("cpu", non_blocking=True).permute(1, 2, 0)
                      if i % args.log_img_interval == 0 else None)
@@ -260,3 +392,4 @@ def run_decoder_training(args, source_iter, target_iter, denormalize,
     if pending is not None:
         flush(pending)
     _check_same_draws(swaps)
+    return step

@@ -25,7 +25,15 @@ The spans:
   eager warm-up, capture or replay of the step;
 - ``decoder.fetch``, ``decoder.step``, ``decoder.readback``,
   ``decoder.log``, ``decoder.save``: the AdaIN decoder loop
-  (``adain_engine.run_decoder_training``).
+  (``adain_engine.run_decoder_training``): an iteration's batches and swap
+  draw, the staging of its batches and the enqueue of its step, the wait
+  for a step's losses, the log line and PNG, the decoder file;
+- ``decoder.warm_up``, ``decoder.capture``, ``decoder.replay``, inside
+  ``decoder.step``: on the card with no process group, one of the step's
+  eager warm-ups, its capture into a CUDA graph, or a replay of the graph
+  (``adain_engine.DecoderStepGraph``, which counts them as
+  ``eager_steps``, ``captures`` and ``replays``). On the CPU and under a
+  process group the step runs eagerly and opens none of them.
 """
 
 from __future__ import annotations
